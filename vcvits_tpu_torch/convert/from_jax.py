@@ -1,0 +1,86 @@
+"""JAX parameter tree (as numpy arrays) -> the port's state dict.
+
+`params_from_jax(g_params, cfg)` takes the JAX package's generator
+parameters with every leaf a numpy array (for example
+`jax.tree.map(np.asarray, params)`) and returns a state dict for the port's
+module of the same subtree: `SynthesizerSVC` for the whole generator, or
+any submodule for a subtree. It imports no JAX. The rules, by leaf name:
+
+* flax `Dense.kernel` [in, out]       -> `weight` [out, in]   (kernel.T)
+* conv `kernel` / `v` [k, in, out]    -> `weight` / `v` [out, in, k]
+* ConvTranspose `v` [k, out, in]      -> `v` [in, out, k]     (same transpose)
+* weight-norm `g` [1, 1, n]           -> `g` [n, 1, 1]
+* HuBERT `conv_{i}_kernel`            -> `conv_{i}.weight`
+* `embedding`, LayerNorm `scale` / `gamma` -> `weight`;  `beta` -> `bias`
+
+The posterior encoder (`enc_q`) is not in the port and is dropped.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from vcvits_tpu_torch.config import Config
+
+_HUBERT_CONV = re.compile(r"^conv_(\d+)_(kernel|bias)$")
+_NOT_PORTED = ("enc_q",)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "."))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _convert_leaf(path: str, arr: np.ndarray):
+    parent, _, leaf = path.rpartition(".")
+    pre = parent + "." if parent else ""
+    m = _HUBERT_CONV.match(leaf)
+    if m:
+        i, kind = m.groups()
+        name = f"{pre}conv_{i}.{'weight' if kind == 'kernel' else 'bias'}"
+        return name, arr.transpose(2, 1, 0) if kind == "kernel" else arr
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return pre + "weight", arr.T
+        return pre + "weight", arr.transpose(2, 1, 0)
+    if leaf == "v":
+        return pre + "v", arr.transpose(2, 1, 0)
+    if leaf == "g":
+        return pre + "g", arr.reshape(-1, 1, 1)
+    if leaf in ("embedding", "scale", "gamma"):
+        return pre + "weight", arr
+    if leaf == "beta":
+        return pre + "bias", arr
+    return path, arr
+
+
+def params_from_jax(g_params: Mapping, cfg: Optional[Config] = None) -> Dict[str, torch.Tensor]:
+    """Numpy JAX parameter tree -> float32 state dict. With `cfg`, the tree
+    must be a whole generator of that configuration (checked on the decoder
+    input, the upsampler width and the speaker table)."""
+    flat = {k: v for k, v in _flatten(g_params).items()
+            if k.split(".", 1)[0] not in _NOT_PORTED}
+    sd = {}
+    for path, arr in flat.items():
+        name, val = _convert_leaf(path, arr)
+        sd[name] = torch.tensor(val, dtype=torch.float32)
+    if cfg is not None:
+        m = cfg.model
+        expect = {"dec.conv_pre.v": (m.upsample_initial_channel, m.inter_channels, 7)}
+        if cfg.data.n_speakers >= 1:
+            expect["emb_g.weight"] = (cfg.data.n_speakers, m.gin_channels)
+        for name, shape in expect.items():
+            got = tuple(sd[name].shape) if name in sd else None
+            if got != shape:
+                raise ValueError(f"{name}: expected {shape} for this config, got {got}")
+    return sd

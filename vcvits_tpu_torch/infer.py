@@ -1,0 +1,113 @@
+"""Inference API: file-to-file any-to-any voice conversion on the GPU.
+
+Counterpart of vcvits_tpu/infer.py:VoiceConverter (the conversion path; the
+flow-swap `voice_conversion` is not in this slice). Resample the source to
+16 kHz, optional semitone pitch shift, pYIN -> coarse F0 on the host, then
+`SynthesizerSVC.infer` on the device, and write 48 kHz PCM_24. Inputs are
+padded to an alignment-unit boundary, as in JAX.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vcvits_tpu_torch.config import Config
+from vcvits_tpu_torch.convert.from_jax import params_from_jax
+from vcvits_tpu_torch.data.collate import alignment_unit
+from vcvits_tpu_torch.dsp.pitch import coarse_f0, estimate_pitch
+from vcvits_tpu_torch.dsp.pitch_shift import pitch_shift as shift_semitones
+from vcvits_tpu_torch.dsp.resample import resample
+from vcvits_tpu_torch.models.hubert import HubertConfig
+from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+from vcvits_tpu_torch.utils.audio_io import read_wav, write_wav
+
+
+class VoiceConverter:
+    def __init__(self, cfg: Config, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 dtype=torch.float32, device="cuda", hubert_cfg: Optional[HubertConfig] = None,
+                 seed: int = 0):
+        """A converter on `device` ("cuda" by default; raises when no GPU
+        is present unless device="cpu"). Weights come from `state_dict`, or
+        from the seeded initialiser when it is None."""
+        self.cfg = cfg
+        self.gen = SynthesizerSVC.from_config(
+            cfg, dtype=dtype, device=device, seed=seed if state_dict is None else None,
+            hubert_cfg=hubert_cfg)
+        if state_dict is not None:
+            self.gen.load_state_dict(state_dict)
+        self.gen.eval()
+        self.device = next(self.gen.parameters()).device
+        self.unit = alignment_unit(cfg.data)
+
+    @classmethod
+    def from_params(cls, cfg: Config, g_params: Mapping, dtype=torch.float32, device="cuda",
+                    hubert_cfg: Optional[HubertConfig] = None) -> "VoiceConverter":
+        """From the JAX package's generator parameters as numpy arrays."""
+        return cls(cfg, params_from_jax(g_params, cfg), dtype=dtype, device=device,
+                   hubert_cfg=hubert_cfg)
+
+    def prepare_source(self, path: str, pitch_shift: int = 0
+                       ) -> Tuple[np.ndarray, int, np.ndarray]:
+        """wav file -> (padded 16k source, true length, coarse pitch)."""
+        d = self.cfg.data
+        wav, sr = read_wav(path)
+        wav = resample(wav, sr, d.source_sampling_rate)
+        if pitch_shift != 0:
+            wav = shift_semitones(wav, d.source_sampling_rate, pitch_shift)
+        true_len = len(wav)
+        padded = int(np.ceil(max(true_len, 1) / self.unit) * self.unit)
+        wav = np.pad(wav, (0, padded - true_len))
+        f0 = estimate_pitch(wav, sr=d.source_sampling_rate, n_fft=d.filter_length,
+                            win_length=d.win_length, hop_length=320)
+        pitch = coarse_f0(f0, f0_bin=d.num_pitch)
+        return wav.astype(np.float32), true_len, pitch
+
+    def convert_array(self, wav16k: np.ndarray, pitch: np.ndarray, speaker_id: int,
+                      true_len: Optional[int] = None, noise_scale: float = 1.0,
+                      rng_seed: int = 0, eps: Optional[np.ndarray] = None) -> np.ndarray:
+        """One utterance -> the valid 48 kHz samples. `eps` [1, t_out, inter]
+        replaces the seeded normal draw."""
+        dev = self.device
+        true_len = true_len if true_len is not None else len(wav16k)
+        gen = torch.Generator(device=dev).manual_seed(rng_seed)
+        o, y_mask, _ = self.gen.infer(
+            torch.as_tensor(wav16k, dtype=torch.float32, device=dev)[None, :],
+            torch.tensor([true_len], dtype=torch.int32, device=dev),
+            torch.as_tensor(np.asarray(pitch), dtype=torch.int64, device=dev)[None, :],
+            torch.tensor([speaker_id], dtype=torch.int64, device=dev),
+            noise_scale=noise_scale, generator=gen,
+            eps=None if eps is None else torch.as_tensor(eps, device=dev))
+        # count in float32: a bf16 sum of more than 256 ones rounds
+        n_valid = int(y_mask[0].float().sum().item()) * self.cfg.data.hop_length
+        return o[0, :n_valid, 0].float().cpu().numpy()
+
+    def convert(self, source_audio: str, target_audio: str, speaker_id: int,
+                pitch_shift: int = 0, noise_scale: float = 1.0) -> np.ndarray:
+        """File -> file, PCM_24 at the target rate."""
+        wav, true_len, pitch = self.prepare_source(source_audio, pitch_shift)
+        out = self.convert_array(wav, pitch, speaker_id, true_len, noise_scale)
+        write_wav(target_audio, out, self.cfg.data.target_sampling_rate, subtype="PCM_24")
+        return out
+
+    def convert_many(self, jobs, pitch_shift: int = 0, noise_scale: float = 1.0,
+                     collect_audio: bool = False):
+        """Pipelined conversion of (source_path, output_path, speaker_id)
+        jobs: one worker thread prepares file i+1 on the host (read,
+        resample, pYIN) while the device converts file i. Returns the output
+        paths, or the waveforms with `collect_audio=True`."""
+        jobs = list(jobs)
+        outs = []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(self.prepare_source, jobs[0][0], pitch_shift) if jobs else None
+            for i, (_src, dst, sid) in enumerate(jobs):
+                wav, true_len, pitch = fut.result()
+                if i + 1 < len(jobs):
+                    fut = pool.submit(self.prepare_source, jobs[i + 1][0], pitch_shift)
+                out = self.convert_array(wav, pitch, sid, true_len, noise_scale)
+                write_wav(dst, out, self.cfg.data.target_sampling_rate, subtype="PCM_24")
+                outs.append(out if collect_audio else dst)
+        return outs

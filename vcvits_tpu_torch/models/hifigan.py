@@ -1,0 +1,108 @@
+"""HiFi-GAN MRF decoder (the 48 kHz waveform generator), PyTorch.
+
+Counterpart of vcvits_tpu/models/hifigan.py on its unfolded path:
+`conv_pre`, the speaker `cond` Dense added after it, per stage
+lrelu(0.1) -> ConvTranspose (padding (k-u)//2) -> MRF (ResBlock1 blocks
+summed then divided by their count), a final lrelu of slope 0.01,
+`conv_post` and tanh. Every stage's MRF goes through ops/mrf.py (kernel K1
+on a CUDA tensor). The JAX package's space-to-depth tail folding and
+dilation phase split are exact TPU rewrites of these convs and are not
+carried over; int8 and ResBlock2 are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from vcvits_tpu_torch.models.layers import (
+    LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, leaky_relu)
+from vcvits_tpu_torch.ops.mrf import Block, mrf
+
+
+class ResBlock1(nn.Module):
+    """MRF residual block: per dilation, a dilated conv and a plain conv."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilations: Tuple[int, ...] = (1, 3, 5), dtype=torch.float32):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
+        self.dtype = dtype
+        for i, d in enumerate(self.dilations):
+            self.add_module(f"c1_{i}", Conv1d(channels, channels, kernel_size, dilation=d,
+                                              weight_norm=True, kernel_init="normal", dtype=dtype))
+            self.add_module(f"c2_{i}", Conv1d(channels, channels, kernel_size, weight_norm=True,
+                                              kernel_init="normal", dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """This block alone, through ops/mrf.py (an MRF of one block)."""
+        return mrf(x, [self.stacked_weights(self.dtype)], (self.kernel_size,),
+                   (self.dilations,))
+
+    def stacked_weights(self, dtype: torch.dtype) -> Block:
+        """(w1 [D, k, C, C], b1 [D, C], w2, b2) in ops/mrf.py's layout, folded
+        in float32 and cast to `dtype`, as fold_resblock_weights does."""
+        def stack(prefix, attr):
+            convs = [getattr(self, f"{prefix}_{i}") for i in range(len(self.dilations))]
+            if attr == "kernel":
+                ts = [c.kernel().permute(2, 1, 0) for c in convs]  # [k, Cin, Cout]
+            else:
+                ts = [c.bias for c in convs]
+            return torch.stack(ts).detach().to(dtype).contiguous()
+        return (stack("c1", "kernel"), stack("c1", "bias"),
+                stack("c2", "kernel"), stack("c2", "bias"))
+
+
+class HiFiGANGenerator(FoldCache):
+    """[B, T, inter_channels] latent -> [B, T * prod(upsample_rates), 1] wave.
+
+    Each stage's MRF weights are folded and stacked once (`mrf_weights`)
+    and reused on every call until a parameter changes."""
+
+    def __init__(self, initial_channel: int, resblock: str = "1",
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+                 upsample_rates: Sequence[int] = (8, 8, 4, 2),
+                 upsample_initial_channel: int = 512,
+                 upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
+                 gin_channels: int = 0, dtype=torch.float32):
+        super().__init__()
+        if resblock != "1":
+            raise NotImplementedError("ResBlock2 is not ported (no configuration uses it)")
+        self.kernel_sizes = tuple(resblock_kernel_sizes)
+        self.dilations = tuple(tuple(d) for d in resblock_dilation_sizes)
+        self.n_stages = len(upsample_rates)
+        self.dtype = dtype
+        c0 = upsample_initial_channel
+        self.conv_pre = Conv1d(initial_channel, c0, 7, padding=(3, 3), weight_norm=True,
+                               dtype=dtype)
+        self.cond = Linear(gin_channels, c0, dtype=dtype) if gin_channels > 0 else None
+        ch = c0
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            ch_out = c0 // (2 ** (i + 1))
+            self.add_module(f"up_{i}", ConvTranspose1d(
+                ch, ch_out, k, stride=u, padding=(k - u) // 2, weight_norm=True,
+                kernel_init="normal", dtype=dtype))
+            for j, (rk, rd) in enumerate(zip(self.kernel_sizes, self.dilations)):
+                self.add_module(f"res_{i}_{j}", ResBlock1(ch_out, rk, rd, dtype=dtype))
+            ch = ch_out
+        self.conv_post = Conv1d(ch, 1, 7, padding=(3, 3), weight_norm=True, dtype=dtype)
+
+    def mrf_weights(self) -> List[List[Block]]:
+        """Per stage, its blocks' weights in ops/mrf.py's layout."""
+        return self.folded(lambda: [
+            [getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
+             for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)])
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.conv_pre(x)
+        if g is not None and self.cond is not None:
+            x = x + self.cond(g)[:, None, :]
+        for i, blocks in enumerate(self.mrf_weights()):
+            x = getattr(self, f"up_{i}")(leaky_relu(x, LRELU_SLOPE)).contiguous()
+            x = mrf(x, blocks, self.kernel_sizes, self.dilations)
+        x = self.conv_post(leaky_relu(x, 0.01))  # torch's default slope, as in JAX
+        return torch.tanh(x)

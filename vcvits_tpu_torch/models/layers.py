@@ -1,0 +1,255 @@
+"""Primitive layers, [B, T, C] layout at every public forward.
+
+Counterparts of vcvits_tpu/models/layers.py. Convolutions transpose to
+PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
+
+* Parameters are held in float32 and cast to the module's compute `dtype`
+  at call time, as the flax modules do (params fp32, `dtype` for compute).
+* Weight norm keeps explicit `v` / `g` parameters and folds
+  `g * v / ||v||` per call, the norm taken over every axis except the
+  output channel (`Conv1d`) or the input channel (`ConvTranspose1d`, whose
+  PyTorch weight is [in, out, k]).
+* Every leaf module has `reset_parameters(generator)` mirroring the JAX
+  package's initialiser for that parameter, so `init_weights(model, seed)`
+  gives a seeded model with no checkpoint.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LRELU_SLOPE = 0.1
+
+
+def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+def torch_same_padding(kernel_size: int, dilation: int = 1) -> Tuple[int, int]:
+    """Symmetric PyTorch-style padding for odd kernels."""
+    p = (kernel_size * dilation - dilation) // 2
+    return (p, p)
+
+
+def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+
+def _fill_kernel(p: torch.Tensor, init: str, fan_in: int, gen: torch.Generator) -> None:
+    """The JAX package's kernel initialisers, by name."""
+    if init == "lecun_normal":
+        _normal_(p, 1.0 / math.sqrt(fan_in), gen)
+    elif init == "he_normal":
+        _normal_(p, math.sqrt(2.0 / fan_in), gen)
+    elif init == "normal":  # HiFi-GAN's init_weights: N(0, 0.01)
+        _normal_(p, 0.01, gen)
+    elif init == "zeros":
+        with torch.no_grad():
+            p.zero_()
+    else:
+        raise ValueError(f"unknown kernel init {init!r}")
+
+
+def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
+    dims = tuple(i for i in range(v.ndim) if i != dim)
+    return torch.sqrt(torch.sum(v.float() ** 2, dim=dims, keepdim=True))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel (last) axis, statistics in float32."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+class Linear(nn.Module):
+    """flax `nn.Dense` as a PyTorch linear layer: weight [out, in]."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 kernel_init: str = "lecun_normal", dtype=torch.float32):
+        super().__init__()
+        self.kernel_init = kernel_init
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        out_f, in_f = self.weight.shape
+        if self.kernel_init == "xavier_uniform":
+            lim = math.sqrt(6.0 / (in_f + out_f))
+            with torch.no_grad():
+                self.weight.copy_((torch.rand(self.weight.shape, generator=gen) * 2 - 1) * lim)
+        else:
+            _fill_kernel(self.weight, self.kernel_init, in_f, gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Embedding(nn.Module):
+    """flax `nn.Embed`: a [num, features] table, looked up in `dtype`."""
+
+    def __init__(self, num: int, features: int, std: float = 1.0, dtype=torch.float32):
+        super().__init__()
+        self.std = std
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num, features))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _normal_(self.weight, self.std, gen)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight).to(self.dtype)
+
+
+class _ConvBase(nn.Module):
+    """A conv kernel with optional weight norm over every axis but the first
+    (out channels for Conv1d, in channels for ConvTranspose1d), and a bias."""
+
+    def _make_params(self, shape, out_features: int, bias: bool, weight_norm: bool,
+                     kernel_init: str) -> None:
+        self.kernel_init = kernel_init
+        self.weight_norm = weight_norm
+        if weight_norm:
+            self.v = nn.Parameter(torch.empty(shape))
+            self.g = nn.Parameter(torch.empty(shape[0], 1, 1))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        p = self.v if self.weight_norm else self.weight
+        _fill_kernel(p, self.kernel_init, p.shape[1] * p.shape[2], gen)
+        if self.weight_norm:
+            with torch.no_grad():
+                self.g.copy_(_norm_except(self.v, 0))
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def kernel(self) -> torch.Tensor:
+        """The float32 kernel, weight norm folded."""
+        if self.weight_norm:
+            return self.g * self.v / torch.clamp_min(_norm_except(self.v, 0), 1e-12)
+        return self.weight
+
+
+class Conv1d(_ConvBase):
+    """1-D convolution with PyTorch Conv1d semantics on [B, T, C] tensors.
+
+    Kernel [out, in/groups, k]. `padding` is "same" (symmetric, odd kernels),
+    "valid", or an explicit (lo, hi) pair. `weight_norm=True` stores (v, g)
+    and folds them per call.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 padding: Union[str, Tuple[int, int]] = "same", bias: bool = True,
+                 weight_norm: bool = False, kernel_init: str = "lecun_normal",
+                 dtype=torch.float32):
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        if padding == "same":
+            self.pad = torch_same_padding(kernel_size, dilation)
+        elif padding == "valid":
+            self.pad = (0, 0)
+        else:
+            self.pad = tuple(padding)
+        self.dtype = dtype
+        self._make_params((out_channels, in_channels // groups, kernel_size), out_channels,
+                          bias, weight_norm, kernel_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        xt = x.to(dt).transpose(1, 2)
+        if self.pad != (0, 0):
+            xt = F.pad(xt, self.pad)
+        y = F.conv1d(xt, self.kernel().to(dt), b, stride=self.stride,
+                     dilation=self.dilation, groups=self.groups)
+        return y.transpose(1, 2)
+
+
+class ConvTranspose1d(_ConvBase):
+    """Transposed 1-D conv with PyTorch ConvTranspose1d arithmetic.
+
+    out_len = (T-1)*stride - 2*padding + kernel_size. Kernel [in, out, k];
+    weight norm is per INPUT channel (PyTorch's weight_norm dim=0 on this
+    layout), as in vcvits_tpu/models/layers.py:336-342.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int = 0, bias: bool = True,
+                 weight_norm: bool = False, kernel_init: str = "lecun_normal",
+                 dtype=torch.float32):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dtype = dtype
+        self._make_params((in_channels, out_channels, kernel_size), out_channels, bias,
+                          weight_norm, kernel_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        y = F.conv_transpose1d(x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
+                               stride=self.stride, padding=self.padding)
+        return y.transpose(1, 2)
+
+
+class FoldCache(nn.Module):
+    """A module whose forward uses tensors derived from its parameters
+    (weight norm folded, kernels stacked for a CUDA kernel). `folded(build)`
+    runs `build` once and reuses its result until a parameter changes: the
+    key is each parameter's storage and in-place write count, which
+    load_state_dict and every in-place edit move, and .to() and the other
+    conversions drop the cache."""
+
+    _folded = None
+
+    def folded(self, build):
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                self._folded = (key, build())
+        return self._folded[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded = None
+        return super()._apply(fn, *args, **kwargs)
+
+
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded initialisation of every parameter, mirroring the JAX package's
+    initialisers (lecun/he normal kernels, N(0, 0.01) HiFi-GAN convs, a
+    zero flow `post`, weight-norm `g` = ||v||). Each module's
+    `reset_parameters` fills its own direct parameters; the draws are made
+    on the CPU in module order and copied to wherever the parameters live."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    return model

@@ -1,0 +1,123 @@
+"""SynthesizerSVC inference: the end-to-end 48 kHz conversion generator.
+
+Counterpart of vcvits_tpu/models/synthesizer.py:SynthesizerSVC.infer: the
+content encoder gives (m_p, logs_p) at 50 Hz, nearest-interpolated to
+48 kHz frames; z_p = m_p + eps * exp(logs_p) * noise_scale; the flow reverse
+(ops/flow_coupling.py) gives z; the HiFi-GAN decoder (ops/mrf.py per stage)
+gives the wave. On a CUDA device both go through their hand-written
+kernels; there is no flag that sends the card to the plain path.
+
+The posterior encoder, training forward and flow-swap `voice_conversion`
+are not in this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from vcvits_tpu_torch.config import Config
+from vcvits_tpu_torch.models.content_encoder import HubertContentEncoder
+from vcvits_tpu_torch.models.flow import ResidualCouplingBlock
+from vcvits_tpu_torch.models.hifigan import HiFiGANGenerator
+from vcvits_tpu_torch.models.hubert import HUBERT_BASE, HUBERT_XTRALARGE, HubertConfig
+from vcvits_tpu_torch.models.layers import Embedding, init_weights
+from vcvits_tpu_torch.utils.device import resolve_device
+from vcvits_tpu_torch.utils.masking import nearest_interp, sequence_mask
+
+
+def hubert_config_for(hubert_channels: int) -> HubertConfig:
+    return HUBERT_XTRALARGE if hubert_channels == 1280 else HUBERT_BASE
+
+
+class SynthesizerSVC(nn.Module):
+    def __init__(self, inter_channels: int, hidden_channels: int, filter_channels: int,
+                 n_heads: int, n_layers: int, kernel_size: int, resblock: str,
+                 resblock_kernel_sizes: Tuple[int, ...],
+                 resblock_dilation_sizes: Tuple[Tuple[int, ...], ...],
+                 upsample_rates: Tuple[int, ...], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Tuple[int, ...], hubert_channels: int, num_pitch: int,
+                 n_speakers: int = 0, gin_channels: int = 0,
+                 hubert_cfg: Optional[HubertConfig] = None, dec_quant_int8: bool = False,
+                 dtype=torch.float32, device="cuda", seed: Optional[int] = 0):
+        """Builds on `device` ("cuda" by default; raises when no GPU is
+        present unless device="cpu"). `seed` initialises the weights as the
+        JAX package does; pass seed=None and load a state dict instead."""
+        super().__init__()
+        if dec_quant_int8:
+            raise NotImplementedError("the int8 decoder is not ported")
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.n_speakers = n_speakers
+        self.enc_p = HubertContentEncoder(
+            hubert_cfg or hubert_config_for(hubert_channels), inter_channels, hidden_channels,
+            filter_channels, n_heads, n_layers, kernel_size, num_pitch, dtype=dtype)
+        self.dec = HiFiGANGenerator(
+            inter_channels, resblock, resblock_kernel_sizes, resblock_dilation_sizes,
+            upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
+            gin_channels=gin_channels, dtype=dtype)
+        self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, 4,
+                                          gin_channels=gin_channels, dtype=dtype)
+        self.emb_g = Embedding(n_speakers, gin_channels, dtype=dtype) if n_speakers >= 1 \
+            else None
+        if seed is not None:
+            init_weights(self, seed)
+        self.to(device)
+
+    @classmethod
+    def from_config(cls, cfg: Config, dtype=torch.float32, device="cuda",
+                    seed: Optional[int] = 0,
+                    hubert_cfg: Optional[HubertConfig] = None) -> "SynthesizerSVC":
+        m = cfg.model
+        return cls(
+            inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
+            filter_channels=m.filter_channels, n_heads=m.n_heads, n_layers=m.n_layers,
+            kernel_size=m.kernel_size, resblock=m.resblock,
+            resblock_kernel_sizes=m.resblock_kernel_sizes,
+            resblock_dilation_sizes=m.resblock_dilation_sizes,
+            upsample_rates=m.upsample_rates,
+            upsample_initial_channel=m.upsample_initial_channel,
+            upsample_kernel_sizes=m.upsample_kernel_sizes,
+            hubert_channels=m.hubert_channels, num_pitch=m.num_pitch,
+            n_speakers=cfg.data.n_speakers, gin_channels=m.gin_channels,
+            hubert_cfg=hubert_cfg, dec_quant_int8=m.dec_quant_int8,
+            dtype=dtype, device=device, seed=seed)
+
+    def _speaker(self, sid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if self.emb_g is not None and sid is not None:
+            return self.emb_g(sid)
+        return None
+
+    @torch.no_grad()
+    def infer(self, x_wav: torch.Tensor, x_wav_lengths: torch.Tensor, x_pitch: torch.Tensor,
+              sid: Optional[torch.Tensor] = None, noise_scale: float = 1.0,
+              length_scale: float = (48000 / 512) / 16000, max_len: Optional[int] = None,
+              generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
+        """x_wav [B, T] 16 kHz, x_wav_lengths [B], x_pitch [B, T//320].
+
+        Output length t_out = round(T_wav * length_scale) frames, per-row
+        validity in y_mask. `eps` [B, t_out, inter] replaces the normal
+        draw from `generator` (tests inject JAX's draw with it).
+        Returns (o [B, t_out*hop, 1], y_mask [B, t_out, 1], (z, z_p, m_p, logs_p)).
+        """
+        _, m_p, logs_p, _ = self.enc_p(x_wav, x_wav_lengths, x_pitch)
+        g = self._speaker(sid)
+
+        t_out = int(round(x_wav.shape[1] * length_scale))
+        y_lengths = (x_wav_lengths.to(torch.float32) * length_scale).to(torch.int32)
+        y_mask = sequence_mask(y_lengths, t_out).to(m_p.dtype)
+
+        m_p = nearest_interp(m_p, t_out)
+        logs_p = nearest_interp(logs_p, t_out)
+        if eps is None:
+            eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
+                              dtype=m_p.dtype)
+        z_p = m_p + eps.to(m_p.device, m_p.dtype) * torch.exp(logs_p) * noise_scale
+        z = self.flow.kernel_reverse(z_p, y_mask, g=g).to(z_p.dtype) * y_mask
+        if max_len is not None:
+            z = z[:, :max_len]
+            y_mask = y_mask[:, :max_len]
+        o = self.dec(z, g=g)
+        return o, y_mask, (z, z_p, m_p, logs_p)

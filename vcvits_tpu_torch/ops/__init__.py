@@ -1,0 +1,8 @@
+"""The port's hand-written CUDA kernels and their plain PyTorch versions.
+
+* `mrf` (K1): a HiFi-GAN stage's MRF, csrc/mrf.cu.
+* `flow_coupling` (K2): one residual-coupling reverse, csrc/flow_coupling.cu.
+
+Each wrapper runs its plain version for a CPU tensor and its kernel for a
+CUDA tensor; `_build.LAUNCHES` counts the kernel launches.
+"""

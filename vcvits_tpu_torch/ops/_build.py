@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each `csrc/<name>.cu` has a plain C interface and compiles on its own, with
+no PyTorch headers, into `build/torch_kernels/lib<name>.so` under the
+checkout root:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib<name>.so csrc/<name>.cu
+
+A library is rebuilt when it is missing or older than any source in
+`csrc/`. `build()` starts one nvcc per source, all at once, and waits for
+them; `load(name)` builds on first use. ptxas's register and spill report
+is kept beside each library as `<name>.log`.
+
+`LAUNCHES` counts kernel launches by kernel name: every wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+KERNEL_SOURCES = ("mrf", "flow_coupling")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ on first use")
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    return newest > out.stat().st_mtime
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the stale kernel libraries in parallel; returns seconds each
+    build took (0.0 where the library was current). Raises on any failure."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    start = time.perf_counter()
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp)
+    took = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - start
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError_t {err}")
