@@ -16,7 +16,14 @@
    Each prints its time, the plain version's time and the least time the
    card could take (the larger of bytes / 3.35 TB/s and operations / peak:
    67 TFLOP/s float32 CUDA cores, 989 TFLOP/s bf16 tensor cores).
-4. Slice phase: VoiceConverter at the full configs/48k_base.json widths
+   * stft_mel (K3): the train step's 16 x 4 s targets (spec + log-mel) and
+     one padded 10 s voice_conversion source (spec only); spec max |err|
+     <= 1e-4 x max |spec|, log-mel max |err| <= 1e-4; also the time of
+     torch.stft + one fbank matmul (library_ms, a yardstick only).
+   * fused_gate (K5): forward and backward on [16, 375, 256], against the
+     plain op and its autograd, max |err| <= 1e-6 (grad_b, a sum over 375
+     frames, <= 375e-6).
+4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
    with the plain path on the CPU, same weights and noise, and must agree
    (atol 1e-3). Then the main path: 3 synthetic 10 s WAVs through
@@ -25,8 +32,25 @@
    must equal y_mask.sum() * hop, outputs must be finite, and both kernels
    must have launched the expected number of times per request. A per-part
    time breakdown of one 10 s request follows.
-5. Prints a `kernels` JSON line, then, last, the result line
-   {"ok": true, "device": {...}}.
+5. Path A (voice_conversion), full widths: a 0.48 s input on the card and
+   on the CPU, same perturbed weights and eps (atol 1e-3); then 3 synthetic
+   10 s 48 kHz sources with distinct (source, target) speakers through
+   VoiceConverter.voice_conversion in float32 and bf16. Per request: output
+   length = y_mask.sum() * hop, finite, and launches K3 1, K5 32, K2 4,
+   K1 72. ms and real-time factor.
+6. Path B (TrainStep), full widths: 5 steps at batch 16 of paired synthetic
+   2-4 s clips (x_pitch from the known f0), segment 16384, float32. Every
+   loss finite; after step 1 every trainable parameter changed and HuBERT
+   did not; launches per step K3 1, K5 64 forward and 32 backward. ms/step
+   over steps 2-5 and peak memory. Then one step at B=2 x 1 s, dropout off,
+   injected draws, on the card and on the CPU: every loss and both grad
+   norms agree to rtol 1e-3. Per-part device times of one path A request
+   and of a train step (CUDA events), and one of each under torch.profiler
+   (device-busy time, idle share, costliest kernels), follow each path's
+   counted run.
+7. Prints the launches of each path (counters set to 0 just before each
+   path and read just after), a `kernels` JSON line, then, last, the
+   result line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; without a GPU it exits
 non-zero before printing any result.
@@ -53,6 +77,13 @@ SLICE_ATOL = 1e-3
 STAGE_SHAPES = ((7440, 256), (59520, 128), (238080, 64), (476160, 32))  # 930 frames, 10 s
 FLOW_FRAMES, FLOW_CH, FLOW_HID, FLOW_LAYERS, FLOW_K, N_FLOWS = 930, 128, 128, 4, 5, 4
 SPEAKERS = (3, 77, 411)
+CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "48k_base.json")
+STFT_TOL = 1e-4   # spec: x max |spec|; log-mel: absolute
+GATE_TOL = 1e-6   # absolute, fp32 elementwise
+TRAIN_RTOL = 1e-3  # card vs CPU, one train step, every loss and grad norm
+PATH_A_PADDED = 483840  # a 10 s 48 kHz source padded to the 7680-sample unit
+GATE_SHAPE = (16, 375, 128)  # the train step's posterior WN: B, spectrogram frames, H
+N_TRAIN_STEPS = 5
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -231,23 +262,10 @@ def write_sources(tmp: str, n: int = 3, seconds: float = 10.0, sr: int = 22050):
 
 def reference_check(cfg, dev) -> None:
     """A short input through the card (kernels) and the CPU (plain path),
-    same weights and noise. The seeded weights are perturbed first: JAX's
-    initialisers leave the flow's `post` at zero (the flow an identity) and
-    the decoder's N(0, 0.01) convs give a near-silent output, which would
-    make the comparison check little."""
+    same weights (`perturbed_state`) and noise."""
     from vcvits_tpu_torch.infer import VoiceConverter
-    from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
 
-    model = SynthesizerSVC.from_config(cfg, device="cpu", seed=0)
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.startswith("flow.") and ".post." in name:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
-            elif name.startswith("dec.") and name.endswith(".g"):
-                p.mul_(3.0)  # output mean |y| about 0.3, unsaturated
-    sd = model.state_dict()
-    del model
+    sd = perturbed_state(cfg)
     rng = np.random.default_rng(5)
     n = 7680
     t = np.arange(n) / 16000
@@ -311,8 +329,7 @@ def slice_phase(dev, _build, card: str):
     from vcvits_tpu_torch.ops.mrf import launches_per_stage
     from vcvits_tpu_torch.utils.audio_io import read_wav
 
-    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                                   "48k_base.json"))
+    cfg = load_config(CONFIG)
     reference_check(cfg, dev)
     m = cfg.model
     per_req = {"mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes),
@@ -378,6 +395,408 @@ def slice_phase(dev, _build, card: str):
     return counts
 
 
+def stft_phase(rng, dev, _build):
+    """K3 at the main paths' shapes: the train step's 16 x 4 s targets
+    (spec + mel) and one padded 10 s voice_conversion source (spec only)."""
+    import torch.nn.functional as F
+
+    from vcvits_tpu_torch.dsp.spectrogram import hann_window, mel_filterbank
+    from vcvits_tpu_torch.ops.stft_mel import (
+        spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
+
+    n_fft, hop, n_mels, sr = 2048, 512, 128, 48000
+    fbank = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels).T.copy(), device=dev)
+    window = torch.as_tensor(hann_window(n_fft), device=dev)
+    n_freq = n_fft // 2 + 1
+    out = {}
+    for label, b, t, with_mel in (("train 16 x 4 s", 16, 4 * 48000, True),
+                                  ("vc 1 x 10.08 s", 1, PATH_A_PADDED, False)):
+        n = np.arange(t) / sr
+        tone = sum(0.2 / (h + 1) * np.sin(2 * np.pi * 150.0 * (h + 1) * n) for h in range(10))
+        y = torch.tensor(tone[None, :] + 0.02 * rng.standard_normal((b, t)), dtype=torch.float32,
+                         device=dev)
+        if with_mel:
+            kernel = lambda: spectrogram_mel(y, n_fft, n_mels, sr, hop, n_fft)  # noqa: E731
+            plain = lambda: spectrogram_mel_plain(y, n_fft, n_mels, sr, hop, n_fft)  # noqa: E731
+        else:
+            kernel = lambda: (spectrogram(y, n_fft, hop, n_fft), None)  # noqa: E731
+            plain = lambda: (spectrogram_plain(y, n_fft, hop, n_fft), None)  # noqa: E731
+
+        def library():
+            yp = F.pad(y[:, None, :], ((n_fft - hop) // 2,) * 2, mode="reflect")[:, 0]
+            st = torch.stft(yp, n_fft, hop, n_fft, window=window, center=False,
+                            return_complex=True)
+            spec = torch.sqrt(st.real ** 2 + st.imag ** 2 + 1e-6).transpose(1, 2)
+            return spec, torch.log(torch.clamp_min(spec @ fbank, 1e-5)) if with_mel else None
+
+        (spec, mel), (rspec, rmel), (lspec, lmel) = kernel(), plain(), library()
+        torch.cuda.synchronize()
+        top = rspec.abs().max().item()
+        err = (spec - rspec).abs().max().item()
+        mel_err = (mel - rmel).abs().max().item() if with_mel else 0.0
+        lib_err = (lspec - rspec).abs().max().item()
+        if not (err <= STFT_TOL * top and mel_err <= STFT_TOL and torch.isfinite(spec).all()):
+            raise AssertionError(f"stft_mel {label}: spec max |err| {err:.3e} (limit "
+                                 f"{STFT_TOL * top:.3e}), log-mel max |err| {mel_err:.3e}")
+        ms, launches = timed(kernel, _build, "stft_mel")
+        plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
+        rows = spec.shape[0] * spec.shape[1]
+        flops = 4 * rows * n_fft * n_freq + (2 * rows * n_freq * n_mels if with_mel else 0)
+        nbytes = 4 * (b * t + 2 * n_fft * n_freq + rows * n_freq
+                      + ((n_freq + rows) * n_mels if with_mel else 0))
+        b_ms, b_by = bound_ms(flops, nbytes, FP32_FLOPS)
+        print(f"stft_mel {label} [{b},{t}] -> [{spec.shape[0]},{spec.shape[1]},{n_freq}]"
+              f"{' + mel' if with_mel else ''}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (torch.stft + matmul, max |diff| {lib_err:.3e}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) launches={launches:g} max_abs_err={err:.3e} "
+              f"(max |spec| {top:.3e}) mel_max_abs_err={mel_err:.3e}")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms, "max_abs_err": max(err, mel_err)}
+    return out
+
+
+def gate_phase(rng, dev, _build):
+    """K5 forward and backward at the train step's posterior WN shape."""
+    from vcvits_tpu_torch.ops.fused_gate import (
+        fused_add_tanh_sigmoid_multiply, fused_gate, launch_backward, launch_forward)
+
+    b, t, h = GATE_SHAPE
+    a = torch.tensor(rng.standard_normal((b, t, 2 * h)), dtype=torch.float32, device=dev)
+    bb = torch.tensor(rng.standard_normal((b, 1, 2 * h)), dtype=torch.float32, device=dev)
+    go = torch.tensor(rng.standard_normal((b, t, h)), dtype=torch.float32, device=dev)
+
+    def graph(fn):
+        a_, b_ = a.clone().requires_grad_(), bb.clone().requires_grad_()
+        return fn(a_, b_, h), a_, b_
+
+    res = {}
+    for fn in (fused_gate, fused_add_tanh_sigmoid_multiply):
+        out, a_, b_ = graph(fn)
+        out.backward(go)
+        res[fn] = (out.detach(), a_.grad, b_.grad)
+    torch.cuda.synchronize()
+    got, ref = res[fused_gate], res[fused_add_tanh_sigmoid_multiply]
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    limits = (GATE_TOL, GATE_TOL, GATE_TOL * t)  # grad_b sums t terms
+    if not all(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"fused_gate: max |err| out/grad_a/grad_b {errs} > {limits}")
+    # the kernels alone (one launch each), then through the autograd wrapper
+    b2 = bb.reshape(b, 2 * h)
+    ms, launches = timed(lambda: launch_forward(a, b2, h), _build, "fused_gate", reps=20)
+    wrap_ms = cuda_ms(lambda: fused_gate(a, bb, h), reps=20)
+    plain_ms = cuda_ms(lambda: fused_add_tanh_sigmoid_multiply(a, bb, h), reps=20)
+    bwd_ms, bwd_launches = timed(lambda: launch_backward(go, a, b2, h), _build,
+                                 "fused_gate_backward", reps=20)
+
+    def backward_of(fn):
+        out, _, _ = graph(fn)
+        return lambda: out.backward(go, retain_graph=True)
+
+    bwd_wrap_ms = cuda_ms(backward_of(fused_gate), reps=20)
+    bwd_plain_ms = cuda_ms(backward_of(fused_add_tanh_sigmoid_multiply), reps=20)
+    rows = b * t
+    f_bytes = 4 * (rows * 2 * h + b * 2 * h + rows * h)
+    b_bytes = 4 * (rows * h + rows * 2 * h + b * 2 * h + rows * 2 * h + b * 2 * h)
+    fwd_bound, fwd_by = bound_ms(6 * rows * h, f_bytes, FP32_FLOPS)
+    bwd_bound, bwd_by = bound_ms(12 * rows * h, b_bytes, FP32_FLOPS)
+    print(f"fused_gate [{b},{t},{2 * h}] fp32 forward: kernel_ms={ms:.4f} "
+          f"wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={fwd_bound:.4f} "
+          f"({fwd_by}) launches={launches:g} max_abs_err={errs[0]:.3e}")
+    print(f"fused_gate [{b},{t},{2 * h}] fp32 backward: kernel_ms={bwd_ms:.4f} "
+          f"autograd_ms={bwd_wrap_ms:.4f} plain_autograd_ms={bwd_plain_ms:.4f} "
+          f"bound_ms={bwd_bound:.4f} ({bwd_by}) launches={bwd_launches:g} "
+          f"grad_a max_abs_err={errs[1]:.3e} grad_b max_abs_err={errs[2]:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "max_abs_err": errs[0], "wrapper_ms": wrap_ms, "ms_backward": bwd_ms,
+            "autograd_ms_backward": bwd_wrap_ms, "plain_autograd_ms_backward": bwd_plain_ms,
+            "bound_ms_backward": bwd_bound, "max_abs_err_backward": max(errs[1:])}
+
+
+def perturbed_state(cfg):
+    """Seeded weights with the flow's zero `post` made random and the
+    decoder's weight-norm gains x 3: JAX's initialisers leave the flow an
+    identity and the decoder near silent, which would make a comparison of
+    outputs check little."""
+    from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+
+    model = SynthesizerSVC.from_config(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("flow.") and ".post." in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+            elif name.startswith("dec.") and name.endswith(".g"):
+                p.mul_(3.0)
+    return model.state_dict()
+
+
+def device_profile(fn, label: str, card: str, top: int = 6) -> None:
+    """One call of fn under torch.profiler, tracing the device only: the
+    host-clock wall time, the device-busy time (the union of the device
+    events' intervals, so work that overlaps counts once, beside their
+    plain sum), the idle share 1 - busy / wall and the costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"{label} profile: torch.profiler recorded no device time; idle share not "
+              f"measured")
+        return
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy = (busy + hi - lo) / 1e3
+    total = sum(end - start for start, end in spans) / 1e3
+    rows = sorted((r for r in prof.key_averages() if r.device_type == DeviceType.CUDA),
+                  key=lambda r: r.self_device_time_total, reverse=True)
+    print(f"{label} profile: wall {wall:.3f} ms, device busy {busy:.3f} ms (events' sum "
+          f"{total:.3f} ms, {len(spans)} events), idle share {1 - busy / wall:.3f} on {card}; "
+          "costliest kernels: " + "; ".join(
+              f"{r.key[:70]} {r.self_device_time_total / 1e3:.3f} ms x{r.count}"
+              for r in rows[:top]))
+
+
+def path_a_breakdown(vc, wav48, s_src: int, s_tgt: int, label: str) -> None:
+    """Device time of each part of one 10 s voice_conversion (CUDA events)."""
+    from vcvits_tpu_torch.ops.stft_mel import spectrogram
+
+    d, g_mod, dev = vc.cfg.data, vc.gen, vc.device
+    unit_y = vc.unit * d.target_sampling_rate // d.source_sampling_rate
+    padded = -(-len(wav48) // unit_y) * unit_y
+    y = torch.zeros(1, padded, device=dev)
+    y[0, :len(wav48)] = torch.as_tensor(wav48, device=dev)
+    lens = torch.tensor([len(wav48) // d.hop_length], dtype=torch.int32, device=dev)
+    parts = {}
+    with torch.no_grad():
+        g_src = g_mod.emb_g(torch.tensor([s_src], device=dev))
+        g_tgt = g_mod.emb_g(torch.tensor([s_tgt], device=dev))
+        spec = spectrogram(y, d.filter_length, d.hop_length, d.win_length)
+        parts["spec (K3)"] = cuda_ms(lambda: spectrogram(y, d.filter_length, d.hop_length,
+                                                         d.win_length), 2)
+        spec = spec.to(g_mod.dtype)
+        z, _, _, y_mask = g_mod.enc_q(spec, lens, g=g_src)
+        parts["posterior (K5 x16)"] = cuda_ms(lambda: g_mod.enc_q(spec, lens, g=g_src), 2)
+        z_p = g_mod.flow(z, y_mask, g=g_src)
+        parts["flow forward (K5 x16)"] = cuda_ms(lambda: g_mod.flow(z, y_mask, g=g_src), 2)
+        z_hat = g_mod.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)
+        parts["flow reverse (K2)"] = cuda_ms(
+            lambda: g_mod.flow.kernel_reverse(z_p, y_mask, g=g_tgt), 2)
+        parts["decoder (K1)"] = cuda_ms(
+            lambda: g_mod.dec(z_hat * y_mask, g=g_tgt, fused_mrf=True), 2)
+    print(f"path A breakdown {label} (device ms, one 10 s request): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()):.3f}")
+
+
+def path_a_phase(dev, _build, card: str):
+    """Flow-swap conversion, VoiceConverter.voice_conversion, at full widths."""
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.utils.audio_io import read_wav
+
+    cfg = load_config(CONFIG)
+    hop = cfg.data.hop_length
+    sd = perturbed_state(cfg)
+    rng = np.random.default_rng(6)
+    n = 23040  # 0.48 s at 48 kHz
+    t = np.arange(n) / 48000
+    wav = (0.3 * np.sin(2 * np.pi * 180 * t) + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    eps = rng.standard_normal((1, n // hop, cfg.model.inter_channels)).astype(np.float32)
+    outs = []
+    for device in (dev, "cpu"):
+        vc = VoiceConverter(cfg, sd, device=device)
+        outs.append(vc.voice_conversion_array(wav, 7, 300, eps=eps))
+        del vc
+    gpu, cpu = outs
+    diff = float(np.abs(gpu - cpu).max())
+    level = float(np.abs(cpu).mean())
+    print(f"path A reference (0.48 s, card kernels vs CPU plain path, fp32): samples={len(gpu)} "
+          f"max_abs_err={diff:.3e} mean|y|={level:.3e}")
+    if len(gpu) != len(cpu) or not diff <= SLICE_ATOL or not level > 1e-2:
+        raise AssertionError(f"path A: card and CPU outputs differ by {diff:.3e} (limit "
+                             f"{SLICE_ATOL}) at mean |y| {level:.3e}")
+
+    m = cfg.model
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage
+    per_req = {"stft_mel": 1, "fused_gate": 2 * 16, "flow_coupling_reverse": 4,
+               "mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes)}
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = write_sources(tmp, sr=48000)
+        pairs = list(zip(SPEAKERS, SPEAKERS[1:] + SPEAKERS[:1]))
+        counts = dict.fromkeys(per_req, 0)  # the requests' launches, not the timing runs'
+        for dtype in (torch.float32, torch.bfloat16):
+            vc = VoiceConverter(cfg, sd, dtype=dtype, device=dev)
+            label = str(dtype)[6:]
+            walls = []
+            for i, (src, (s_src, s_tgt)) in enumerate(zip(srcs, pairs)):
+                _build.LAUNCHES.clear()
+                dst = os.path.join(tmp, f"vc{i}_{label}.wav")
+                t0 = time.perf_counter()
+                out = vc.voice_conversion(src, dst, s_src, s_tgt, rng_seed=i)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                true_len = len(read_wav(src)[0])
+                if len(out) != (true_len // hop) * hop or not np.isfinite(out).all():
+                    raise AssertionError(f"path A {dst}: {len(out)} samples (expected "
+                                         f"{(true_len // hop) * hop}) or non-finite output")
+                rose = {k: _build.LAUNCHES[k] for k in per_req}
+                if rose != per_req:
+                    raise AssertionError(f"path A {dst}: launches {rose}, expected {per_req}")
+                for k, n in rose.items():
+                    counts[k] += n
+            secs = len(out) / 48000
+            print(f"path A {label}: voice_conversion 3 x 10 s (src->tgt {pairs}), "
+                  f"{np.mean(walls[1:]) * 1e3:.1f} ms per request incl. file read/write over "
+                  f"requests 2-3 (first {walls[0] * 1e3:.1f}), "
+                  f"rtf={secs / np.mean(walls[1:]):.2f}x real time on {card}")
+            wav48 = read_wav(srcs[0])[0]
+            vc.voice_conversion_array(wav48, *pairs[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                vc.voice_conversion_array(wav48, *pairs[0])
+            torch.cuda.synchronize()
+            per = (time.perf_counter() - t0) / 3
+            print(f"path A {label}: voice_conversion_array (10 s array) {per * 1e3:.1f} ms per "
+                  f"request, rtf={len(wav48) / 48000 / per:.2f}x real time on {card}")
+            path_a_breakdown(vc, wav48, *pairs[0], label)
+            device_profile(lambda: vc.voice_conversion_array(wav48, *pairs[0]),
+                           f"path A {label} voice_conversion_array", card)
+            del vc
+    return counts
+
+
+def train_batch(cfg, b, lo_s, hi_s, rng, dev):
+    """Paired synthetic clips: a harmonic tone with a known f0 contour and
+    breath noise at 48 kHz (target) and 16 kHz (source), padded to the
+    longest; x_pitch is coarse_f0 of the known f0 (no pYIN)."""
+    from vcvits_tpu_torch.dsp.pitch import coarse_f0
+
+    d = cfg.data
+    lens16 = (rng.uniform(lo_s, hi_s, b) * d.source_sampling_rate).astype(int) // 320 * 320
+    t16 = int(lens16.max())
+    x = np.zeros((b, t16), np.float32)
+    y = np.zeros((b, t16 * 3), np.float32)
+    pitch = np.ones((b, t16 // 320), np.int64)
+    for i, n16 in enumerate(lens16):
+        f0_base = rng.uniform(100, 300)
+        for sr, out in ((d.source_sampling_rate, x), (d.target_sampling_rate, y)):
+            n = n16 * sr // d.source_sampling_rate
+            tt = np.arange(n) / sr
+            f0 = f0_base * (1 + 0.1 * np.sin(2 * np.pi * 0.8 * tt))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            wav = sum(0.25 / (k + 1) * np.sin((k + 1) * phase) for k in range(6))
+            out[i, :n] = wav + 0.01 * rng.standard_normal(n)
+        frames = np.arange(n16 // 320) * 320 / d.source_sampling_rate
+        pitch[i, :n16 // 320] = coarse_f0(f0_base * (1 + 0.1 * np.sin(2 * np.pi * 0.8 * frames)),
+                                          f0_bin=d.num_pitch)
+    as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return {"x_wav": as_t(x), "x_wav_lengths": as_t(lens16, torch.int32),
+            "x_pitch": as_t(pitch), "y_wav": as_t(y), "y_wav_lengths": as_t(lens16 * 3, torch.int32),
+            "sid": as_t(rng.integers(0, d.n_speakers, b), torch.int64)}
+
+
+def path_b_phase(dev, _build, card: str):
+    """The GAN train step at full widths: 5 steps at the config's batch."""
+    from vcvits_tpu_torch.config import Config, load_config
+    from vcvits_tpu_torch.train.state import is_frozen
+    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+
+    cfg = load_config(CONFIG)
+    rng = np.random.default_rng(8)
+    batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, rng, dev)
+    # perturbed: with the flow's zero `post` every flow parameter but `post`
+    # would get a zero gradient in step 1, as in JAX
+    g_state = perturbed_state(cfg)
+    step = TrainStep(cfg, device=dev, g_state=g_state)
+    named = {f"gen.{n}": p for n, p in step.gen.named_parameters()}
+    named.update({f"disc.{n}": p for n, p in step.disc.named_parameters()})
+    before = {n: p.detach().clone() for n, p in named.items()}
+    per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    walls, last = [], None
+    for i in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"path B step {i + 1}: non-finite {bad}")
+        if i == 0:
+            frozen = [n for n in named if is_frozen(n)]
+            moved = [n for n in frozen if not torch.equal(named[n], before[n])]
+            still = [n for n in named if n not in frozen and torch.equal(named[n], before[n])]
+            if moved or still or not frozen:
+                raise AssertionError(f"path B step 1: HuBERT moved {moved[:5]}, trainable "
+                                     f"unchanged {still[:5]} ({len(still)})")
+            print(f"path B step 1: {len(named) - len(frozen)} trainable tensors all changed, "
+                  f"{len(frozen)} HuBERT tensors unchanged")
+            del before
+        last = metrics
+    counts = dict(_build.LAUNCHES)
+    for k, n in per_step.items():
+        if counts.get(k, 0) != n * N_TRAIN_STEPS:
+            raise AssertionError(f"path B: {k} launched {counts.get(k, 0)} times in "
+                                 f"{N_TRAIN_STEPS} steps, expected {n * N_TRAIN_STEPS}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = np.mean(walls[1:]) * 1e3
+    print(f"path B: {N_TRAIN_STEPS} steps at B={cfg.train.batch_size}, 2-4 s clips padded to "
+          f"{batch['y_wav'].shape[1] / 48000:.2f} s, segment {cfg.train.segment_size}, fp32: "
+          f"{ms:.1f} ms/step over steps 2-{N_TRAIN_STEPS} (step 1 {walls[0] * 1e3:.1f} ms), "
+          f"peak memory {peak:.2f} GiB on {card}; launches per step "
+          f"{ {k: counts.get(k, 0) / N_TRAIN_STEPS for k in per_step} }")
+    print(f"path B step {N_TRAIN_STEPS} metrics: " + ", ".join(
+        f"{k}={float(v):.5g}" for k, v in last.items() if not k.startswith("loss/d_")))
+    parts = {}
+    for _ in range(2):  # after the counted run: device ms per section of a step
+        step(batch, timings=parts)
+    print("path B breakdown (device ms per step, mean of 2 steps): " + ", ".join(
+        f"{k}={v / 2:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()) / 2:.3f}")
+    device_profile(lambda: step(batch), "path B train step", card)
+    del step, batch
+
+    # one step on the card and on the CPU: same weights, batch and draws
+    raw = cfg.to_dict()
+    raw["model"]["p_dropout"] = 0.0
+    cfg0 = Config.from_dict(raw)
+    small = train_batch(cfg0, 2, 1.0, 1.0, rng, "cpu")
+    t_spec = small["y_wav"].shape[1] // cfg0.data.hop_length
+    seg = cfg0.train.segment_size // cfg0.data.hop_length
+    draws = StepDraws(*(torch.as_tensor(a) for a in (
+        rng.standard_normal((2, t_spec, cfg0.model.inter_channels)).astype(np.float32),
+        rng.integers(0, t_spec - seg + 1, 2),
+        rng.standard_normal((2, t_spec, cfg0.model.inter_channels)).astype(np.float32),
+        rng.integers(0, t_spec - seg + 1, 2))))
+    cpu_step = TrainStep(cfg0, device="cpu", g_state=g_state)
+    card_step = TrainStep(cfg0, device=dev, g_state=cpu_step.gen.state_dict(),
+                          d_state=cpu_step.disc.state_dict())
+    on = lambda d, dev_: {k: v.to(dev_) for k, v in d.items()}  # noqa: E731
+    got = card_step(on(small, dev), StepDraws(*(v.to(dev) for v in vars(draws).values())))
+    ref = cpu_step(small, draws)
+    keys = [k for k in ref if k.startswith("loss/") or k.startswith("grad_norm")]
+    rel = {k: abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6) for k in keys}
+    worst = max(rel, key=rel.get)
+    print(f"path B reference (B=2 x 1 s, dropout off, injected draws, card kernels vs CPU plain "
+          f"path): {len(keys)} losses and grad norms, worst rel diff {rel[worst]:.3e} ({worst}); "
+          f"grad_norm_g {float(got['grad_norm_g']):.6g} vs {float(ref['grad_norm_g']):.6g}, "
+          f"grad_norm_d {float(got['grad_norm_d']):.6g} vs {float(ref['grad_norm_d']):.6g}")
+    if not rel[worst] <= TRAIN_RTOL:
+        raise AssertionError(f"path B: {worst} differs by {rel[worst]:.3e} > {TRAIN_RTOL} "
+                             f"between the card and the CPU")
+    return {k: counts.get(k, 0) for k in per_step}, ms, peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -396,8 +815,16 @@ def main() -> int:
     rng = np.random.default_rng(0)
     flow = flow_phase(rng, dev, _build)
     mrf_res = mrf_phase(rng, dev, _build)
-    counts = slice_phase(dev, _build, card)
-    print(f"kernels: {json.dumps(['mrf', 'flow_coupling_reverse'])}; all phases "
+    stft = stft_phase(rng, dev, _build)
+    gate = gate_phase(rng, dev, _build)
+    paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
+        dev, _build, card)}
+    paths["train_step"], _, _ = path_b_phase(dev, _build, card)
+    counts = {}
+    for path_counts in paths.values():
+        for k, v in path_counts.items():
+            counts[k] = counts.get(k, 0) + v
+    print(f"main-path launches by path: {json.dumps(paths)}; all phases "
           f"{time.perf_counter() - t0:.1f} s on {card}")
     f32, b16 = mrf_res[torch.float32], mrf_res[torch.bfloat16]
     kernels = [
@@ -414,6 +841,20 @@ def main() -> int:
          "max_abs_err": flow["max_abs_err"], "ms": flow["ms"], "plain_ms": flow["plain_ms"],
          "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"], "library_ms": None},
     ]
+    train, vc = stft["train 16 x 4 s"], stft["vc 1 x 10.08 s"]
+    kernels.append(
+        {"name": "stft_mel", "route": "cuda", "source": "vcvits_tpu_torch/csrc/stft_mel.cu",
+         "replaces": "vcvits_tpu/ops/stft_pallas.py:196", "launches": counts.get("stft_mel", 0),
+         "max_abs_err": max(train["max_abs_err"], vc["max_abs_err"]), "ms": train["ms"],
+         "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+         "bound_by": train["bound_by"], "library_ms": train["library_ms"],
+         "ms_vc": vc["ms"], "plain_ms_vc": vc["plain_ms"], "bound_ms_vc": vc["bound_ms"],
+         "library_ms_vc": vc["library_ms"]})
+    kernels.append(
+        {"name": "fused_gate", "route": "cuda", "source": "vcvits_tpu_torch/csrc/fused_gate.cu",
+         "replaces": "vcvits_tpu/ops/fused_gate.py:44", "launches": counts.get("fused_gate", 0),
+         "launches_backward": counts.get("fused_gate_backward", 0), **gate,
+         "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ only in summation order: max |err| <= 1e-4 x the output's RMS. bf16 weights
 round the conv inputs to bf16 on both sides; where the two sums land on
 either side of a bf16 step the input moves by 2^-8 relative, and that
 spreads through the chained convs: the error's RMS <= 2e-2 x the output's
-RMS.
+RMS. The STFT kernel (K3) sums 2048-term DFTs in another order than the
+plain matmul: spec max |err| <= 1e-4 x max |spec|, log-mel max |err| <=
+1e-4. The gate (K5) is elementwise in fp32: forward and gradients <= 1e-6.
 """
 
 import numpy as np
@@ -19,7 +21,11 @@ import torch
 
 from vcvits_tpu_torch.ops import _build
 from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
+from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.mrf import launches_per_stage, mrf, mrf_plain
+from vcvits_tpu_torch.ops.stft_mel import _launch as stft_launch
+from vcvits_tpu_torch.ops.stft_mel import (
+    spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +122,135 @@ def test_flow_kernel_full_width(dev):
     x, mask, cond, w = _flow_inputs(np.random.default_rng(9), 1, 930, 128, 128, 4, dev, True)
     got = coupling_reverse(x, mask, cond, w)
     assert _rel_err(got, coupling_reverse_plain(x, mask, cond, w)) < 1e-4
+
+
+def _wave(rng, b, t, dev):
+    n = np.arange(t) / 48000.0
+    tone = sum(0.2 / (h + 1) * np.sin(2 * np.pi * 180.0 * (h + 1) * n) for h in range(8))
+    y = tone[None, :] + 0.02 * rng.standard_normal((b, t))
+    return torch.tensor(y, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("b,t,tile", [(3, 48000, None), (1, 7000, 8), (2, 20480, 16),
+                                      (2, 20480, 32), (1, 769, 8)])
+def test_stft_mel_kernel_matches_plain(dev, b, t, tile):
+    y = _wave(np.random.default_rng(t), b, t, dev)
+    args = (2048, 128, 48000, 512, 2048)
+    before = _build.LAUNCHES["stft_mel"]
+    if tile is None:  # the wrapper, with the tile it picks
+        spec, mel = spectrogram_mel(y, *args)
+    else:
+        spec, mel = stft_launch(y, 2048, 512, 2048, 128, 48000, 0.0, None, 1e-5, tile)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stft_mel"] - before == 1
+    ref_spec, ref_mel = spectrogram_mel_plain(y, *args)
+    assert spec.shape == ref_spec.shape == (b, 1 + (t - 512) // 512, 1025)
+    assert mel.shape == (b, spec.shape[1], 128)
+    assert (spec - ref_spec).abs().max().item() <= 1e-4 * ref_spec.abs().max().item()
+    assert (mel - ref_mel).abs().max().item() <= 1e-4
+    only = (spectrogram(y, 2048, 512, 2048) if tile is None else
+            stft_launch(y, 2048, 512, 2048, None, 0, 0.0, None, 1e-5, tile)[0])
+    assert (only - ref_spec).abs().max().item() <= 1e-4 * ref_spec.abs().max().item()
+    np.testing.assert_allclose(only.cpu().numpy(), spectrogram_plain(y, 2048, 512, 2048)
+                               .cpu().numpy(), atol=1e-4 * ref_spec.abs().max().item())
+
+
+def test_stft_mel_kernel_refuses_grad(dev):
+    y = _wave(np.random.default_rng(0), 1, 4096, dev).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        spectrogram_mel(y, 2048, 128, 48000, 512, 2048)
+
+
+@pytest.mark.parametrize("b_kind", ["broadcast", "none"])
+@pytest.mark.parametrize("shape", [(16, 282, 128), (3, 77, 16)])
+def test_fused_gate_kernel_matches_plain(dev, b_kind, shape):
+    bsz, t, h = shape
+    rng = np.random.default_rng(t)
+    a = torch.tensor(rng.standard_normal((bsz, t, 2 * h)), dtype=torch.float32, device=dev)
+    b = {"broadcast": (bsz, 1, 2 * h), "none": None}[b_kind]
+    b = None if b is None else torch.tensor(rng.standard_normal(b), dtype=torch.float32,
+                                            device=dev)
+    go = torch.tensor(rng.standard_normal((bsz, t, h)), dtype=torch.float32, device=dev)
+
+    def run(fn):
+        a_ = a.clone().requires_grad_()
+        b_ = None if b is None else b.clone().requires_grad_()
+        out = fn(a_, b_, h)
+        out.backward(go)
+        return out, a_.grad, None if b_ is None else b_.grad
+
+    n0, n1 = _build.LAUNCHES["fused_gate"], _build.LAUNCHES["fused_gate_backward"]
+    got = run(fused_gate)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["fused_gate"] - n0, _build.LAUNCHES["fused_gate_backward"] - n1) \
+        == (1, 1)
+    ref = run(fused_add_tanh_sigmoid_multiply)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        tol = 1e-6 * (t if g.shape[1] == 1 else 1)  # grad_b sums t terms
+        assert g.shape == r.shape and (g - r).abs().max().item() <= tol
+
+
+def test_fused_gate_kernel_bf16(dev):
+    rng = np.random.default_rng(1)
+    a = torch.tensor(rng.standard_normal((2, 50, 64)), device=dev).to(torch.bfloat16)
+    b = torch.tensor(rng.standard_normal((2, 1, 64)), device=dev).to(torch.bfloat16)
+    got = fused_gate(a, b, 32)
+    assert got.dtype == torch.bfloat16
+    ref = fused_add_tanh_sigmoid_multiply(a.float(), b.float(), 32)
+    assert (got.float() - ref).abs().max().item() <= 1e-2
+
+
+TINY_TRAIN = {
+    "train": {"segment_size": 2048, "batch_size": 2, "steps_per_epoch": 10,
+              "disc_time_fold": False},
+    "data": {"filter_length": 1024, "win_length": 1024, "hop_length": 512,
+             "n_mel_channels": 8, "n_speakers": 8},
+    "model": {"inter_channels": 8, "hidden_channels": 16, "filter_channels": 32, "n_heads": 2,
+              "n_layers": 1, "kernel_size": 3, "p_dropout": 0.0, "hubert_channels": 16,
+              "num_pitch": 64, "gin_channels": 4, "upsample_initial_channel": 32,
+              "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3]],
+              "multi_period_discriminator_periods": [2, 3]},
+}
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One tiny TrainStep on the card (K3, K5 with its backward) and on the
+    CPU (plain versions), same weights, batch and draws: every metric to
+    rtol 1e-3; the kernels' launches per step; the section timings."""
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+
+    cfg = Config.from_dict(TINY_TRAIN)
+    hub = HubertConfig(conv_layers=((16, 10, 5), (16, 8, 8), (16, 8, 8)), hidden_size=16,
+                       num_layers=1, num_heads=2, intermediate_size=32, pos_conv_kernel=8,
+                       pos_conv_groups=2)
+    g = np.random.default_rng(0)
+    tx, ty = 5120, 15360
+    batch = {"x_wav": torch.tensor(g.standard_normal((2, tx)) * 0.1, dtype=torch.float32),
+             "x_wav_lengths": torch.tensor([tx, tx - 640], dtype=torch.int32),
+             "x_pitch": torch.tensor(g.integers(1, 64, (2, tx // 320))),
+             "y_wav": torch.tensor(g.standard_normal((2, ty)) * 0.1, dtype=torch.float32),
+             "y_wav_lengths": torch.tensor([ty, ty - 2048], dtype=torch.int32),
+             "sid": torch.tensor([1, 5])}
+    draws = [torch.tensor(g.standard_normal((2, 30, 8)), dtype=torch.float32),
+             torch.tensor([3, 20]), torch.tensor(g.standard_normal((2, 30, 8)),
+                                                 dtype=torch.float32), torch.tensor([0, 17])]
+    cpu = TrainStep(cfg, device="cpu", hubert_cfg=hub, seed=4)
+    card = TrainStep(cfg, device=dev, hubert_cfg=hub, g_state=cpu.gen.state_dict(),
+                     d_state=cpu.disc.state_dict())
+    before = dict(_build.LAUNCHES)
+    parts = {}
+    got = card({k: v.to(dev) for k, v in batch.items()},
+               StepDraws(*(d.to(dev) for d in draws)), timings=parts)
+    rose = {k: _build.LAUNCHES[k] - before.get(k, 0)
+            for k in ("stft_mel", "fused_gate", "fused_gate_backward")}
+    assert rose == {"stft_mel": 1, "fused_gate": 64, "fused_gate_backward": 32}
+    assert len(parts) == 9 and all(v > 0 for v in parts.values())
+    ref = cpu(batch, StepDraws(*draws))
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-3, atol=1e-6, err_msg=k)

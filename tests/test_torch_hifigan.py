@@ -69,7 +69,8 @@ def test_mrf_plain_matches_pallas_interpret(blocks, t, tile):
     x = x[:, :t]
     jw = [fold_resblock_weights(p, "1", len(d), jnp.float32) for (_, p, _), d in zip(bl, DS)]
     ref = np.asarray(mrf_fused(jnp.asarray(x), jw, KS, DS, tile=tile, interpret=True))
-    tw = [tm.stacked_weights(torch.float32) for _, _, tm in bl]
+    with torch.no_grad():
+        tw = [tm.stacked_weights(torch.float32) for _, _, tm in bl]
     for (w1, b1, w2, b2), (jw1, jb1, jw2, jb2) in zip(tw, jw):  # same stacked layout
         np.testing.assert_allclose(w1.numpy(), np.asarray(jw1), atol=1e-6, rtol=1e-5)
         np.testing.assert_allclose(b2.numpy(), np.asarray(jb2)[:, 0], atol=1e-6, rtol=1e-5)

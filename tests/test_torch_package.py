@@ -3,9 +3,10 @@
 * No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
   flax or vcvits_tpu.
 * Importing the package loads no JAX.
-* Entry points refuse to run on the CPU unless asked to.
+* Entry points (conversion, flow-swap conversion, the train step) refuse
+  to run on the CPU unless asked to.
 * On CPU tensors the kernel wrappers take their plain versions and count
-  no launch.
+  no launch; K3's wrapper refuses an input that requires grad.
 * The port's config loads the repo's JSON configs exactly as JAX's does.
 """
 
@@ -23,7 +24,10 @@ from vcvits_tpu.config import load_config as jax_load_config
 from vcvits_tpu_torch.config import load_config
 from vcvits_tpu_torch.ops import _build
 from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
+from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.mrf import mrf, mrf_plain
+from vcvits_tpu_torch.ops.stft_mel import (
+    spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
 
 torch.set_num_threads(1)
 
@@ -53,7 +57,7 @@ def test_no_jax_imports_in_port():
 
 def test_import_loads_no_jax():
     code = ("import sys, vcvits_tpu_torch, vcvits_tpu_torch.infer, "
-            "vcvits_tpu_torch.convert.from_jax; "
+            "vcvits_tpu_torch.convert.from_jax, vcvits_tpu_torch.train.step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -64,13 +68,58 @@ def test_import_loads_no_jax():
 def test_entry_points_refuse_cpu_by_default(monkeypatch):
     from vcvits_tpu_torch.infer import VoiceConverter
     from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+    from vcvits_tpu_torch.train.step import TrainStep
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(os.path.join(ROOT, "configs", "48k_base.json"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        VoiceConverter(cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        SynthesizerSVC.from_config(cfg)
+    # VoiceConverter carries both convert and the flow-swap voice_conversion
+    for build in (lambda: VoiceConverter(cfg), lambda: SynthesizerSVC.from_config(cfg),
+                  lambda: TrainStep(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_voice_conversion_and_train_step_run_on_cpu_when_asked(monkeypatch):
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hub = HubertConfig(conv_layers=((8, 10, 5), (8, 8, 8), (8, 8, 8)), hidden_size=8,
+                       num_layers=1, num_heads=2, intermediate_size=16, pos_conv_kernel=8,
+                       pos_conv_groups=2)
+    cfg = Config.from_dict({
+        "train": {"segment_size": 1024},
+        "data": {"filter_length": 512, "win_length": 512, "hop_length": 256,
+                 "n_mel_channels": 8, "n_speakers": 4},
+        "model": {"inter_channels": 4, "hidden_channels": 8, "filter_channels": 16,
+                  "n_heads": 2, "n_layers": 1, "hubert_channels": 8, "num_pitch": 16,
+                  "gin_channels": 4, "upsample_initial_channel": 16,
+                  "upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 4],
+                  "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+                  "multi_period_discriminator_periods": [2]}})
+    vc = VoiceConverter(cfg, device="cpu", hubert_cfg=hub)
+    assert vc.voice_conversion_array(np.zeros(8000, np.float32), 1, 2).shape == (7936,)
+    step = TrainStep(cfg, device="cpu", hubert_cfg=hub)
+    g = np.random.default_rng(0)
+    batch = {"x_wav": torch.tensor(g.standard_normal((2, 2560)) * 0.1, dtype=torch.float32),
+             "x_wav_lengths": torch.tensor([2560, 2000]),
+             "x_pitch": torch.tensor(g.integers(1, 16, (2, 8))),
+             "y_wav": torch.tensor(g.standard_normal((2, 7680)) * 0.1, dtype=torch.float32),
+             "y_wav_lengths": torch.tensor([7680, 6000]), "sid": torch.tensor([0, 3])}
+    _build.LAUNCHES.clear()
+    metrics = step(batch)
+    assert all(torch.isfinite(v) for v in metrics.values()) and step.step == 1
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_k3_wrapper_refuses_grad():
+    y = torch.zeros(1, 4096, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        spectrogram_mel(y, 2048, 128, 48000, 512, 2048)
+    with pytest.raises(ValueError, match="no backward"):
+        spectrogram(y, 2048, 512, 2048)
 
 
 def test_wrappers_take_plain_version_on_cpu():
@@ -90,6 +139,16 @@ def test_wrappers_take_plain_version_on_cpu():
     mask = torch.ones(1, 20, 1)
     assert torch.equal(coupling_reverse(xf, mask, None, w),
                        coupling_reverse_plain(xf, mask, None, w))
+
+    y = torch.tensor(rng.standard_normal((2, 3000)), dtype=torch.float32)
+    spec, mel = spectrogram_mel(y, 512, 8, 16000, 128, 512)
+    ref_spec, ref_mel = spectrogram_mel_plain(y, 512, 8, 16000, 128, 512)
+    assert torch.equal(spec, ref_spec) and torch.equal(mel, ref_mel)
+    assert torch.equal(spectrogram(y, 512, 128, 512), spectrogram_plain(y, 512, 128, 512))
+
+    a = torch.tensor(rng.standard_normal((2, 9, 2 * h)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((2, 1, 2 * h)), dtype=torch.float32)
+    assert torch.equal(fused_gate(a, b, h), fused_add_tanh_sigmoid_multiply(a, b, h))
     assert sum(_build.LAUNCHES.values()) == 0
 
 

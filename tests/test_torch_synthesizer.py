@@ -1,10 +1,12 @@
-"""The slice end to end: SynthesizerSVC.infer and VoiceConverter, port == JAX.
+"""The conversion paths end to end: SynthesizerSVC.infer, the flow-swap
+voice_conversion and VoiceConverter, port == JAX.
 
 A small configuration (2-layer HuBERT at width 16, inter 8 / hidden 16, the
-real 8*8*4*2 upsampling at narrow width) on shared random weights, every
-weight non-zero. JAX's eps draw is injected into the port (threefry cannot
-be reproduced in PyTorch). The host DSP copies are held against the JAX
-package's functions. float32 on the CPU; waveform atol 1e-4.
+real 8*8*4*2 upsampling at narrow width, the 1025-bin posterior) on shared
+random weights, every weight non-zero. JAX's eps draw is injected into the
+port (threefry cannot be reproduced in PyTorch). The host DSP copies are
+held against the JAX package's functions. float32 on the CPU; waveform
+atol 1e-4.
 """
 
 import jax
@@ -18,6 +20,7 @@ from vcvits_tpu.data.collate import alignment_unit as jax_alignment_unit
 from vcvits_tpu.dsp import pitch as jax_pitch
 from vcvits_tpu.dsp import pitch_shift as jax_pitch_shift
 from vcvits_tpu.dsp import resample as jax_resample
+from vcvits_tpu.dsp.spectrogram import stft_magnitude as jax_stft_magnitude
 from vcvits_tpu.infer import VoiceConverter as JaxVoiceConverter
 from vcvits_tpu.models.hubert import HubertConfig as JaxHubertConfig
 from vcvits_tpu.models.synthesizer import SynthesizerSVC as JaxSynth
@@ -47,10 +50,11 @@ def models():
     jcfg = JaxConfig.from_dict(CFG)
     jm = JaxSynth.from_config(jcfg).clone(hubert_cfg=JaxHubertConfig(**HUBERT))
     w = np.zeros((1, 2560), np.float32)
-    shapes = jax.eval_shape(lambda: jm.init(
+    spec = np.zeros((1, 40, 1025), np.float32)
+    shapes = jax.eval_shape(lambda: jm.init(  # the training forward creates every subtree
         {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}, w,
-        np.array([2560]), np.zeros((1, 8), np.int32), sid=np.array([1]),
-        rng=jax.random.PRNGKey(2), method=JaxSynth.infer))["params"]
+        np.array([2560]), np.zeros((1, 8), np.int32), spec, np.array([40]),
+        sid=np.array([1]), rng=jax.random.PRNGKey(2)))["params"]
     rng = np.random.default_rng(0)
     params = jax.tree.map(lambda s: (rng.standard_normal(s.shape) * 0.2).astype(np.float32),
                           shapes)
@@ -81,6 +85,60 @@ def test_infer_matches_jax(models):
     assert to.shape == (b, 45 * 512, 1)
     assert np.abs(np.asarray(o)).mean() > 1e-3
     np.testing.assert_allclose(to.numpy(), np.asarray(o), atol=1e-4, rtol=0)
+
+
+def test_voice_conversion_matches_jax(models):
+    """The flow swap: posterior (source speaker) -> flow forward -> flow
+    reverse (target speaker, K2's plain version) -> decoder (K1's)."""
+    jcfg, jm, params, port = models
+    rng = np.random.default_rng(2)
+    wav = (rng.standard_normal((2, 15360)) * 0.2).astype(np.float32)
+    lens = np.array([30, 22], np.int32)
+    src, tgt = np.array([1, 6]), np.array([4, 2])
+    d = jcfg.data
+    spec = np.asarray(jax_stft_magnitude(jnp.asarray(wav), d.filter_length, d.hop_length,
+                                         d.win_length))
+    key = jax.random.PRNGKey(4)
+    o, y_mask, (z, z_p, z_hat) = jax.jit(lambda p: jm.apply(
+        {"params": p}, spec, lens, src, tgt, rng=key, method=JaxSynth.voice_conversion))(params)
+    eps = np.array(jax.random.normal(key, np.asarray(z).shape, jnp.float32))
+    to, tmask, (tz, tz_p, tz_hat) = port.gen.voice_conversion(
+        torch.from_numpy(spec), torch.from_numpy(lens), torch.from_numpy(src),
+        torch.from_numpy(tgt), eps=torch.from_numpy(eps))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(y_mask))
+    m = np.asarray(y_mask)
+    for name, a, r in (("z", tz, z), ("z_p", tz_p, z_p), ("z_hat", tz_hat, z_hat)):
+        np.testing.assert_allclose(a.numpy() * m, np.asarray(r) * m, atol=1e-4, rtol=1e-3,
+                                   err_msg=name)
+    assert to.shape == (2, 30 * 512, 1) and np.abs(np.asarray(o)).mean() > 1e-3
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), atol=1e-4, rtol=0)
+
+
+def test_voice_converter_flow_swap_matches_jax(models, tmp_path):
+    """VoiceConverter.voice_conversion, file to file: resample to 48 kHz,
+    pad, K3's spectrogram (its plain version), the flow swap, PCM_24."""
+    jcfg, jm, params, port = models
+    sr = 22050
+    t = np.arange(int(0.45 * sr)) / sr
+    tone = (0.3 * np.sin(2 * np.pi * 200.0 * t)
+            + 0.05 * np.random.default_rng(5).standard_normal(len(t))).astype(np.float32)
+    src = str(tmp_path / "src.wav")
+    audio_io.write_wav(src, tone, sr, subtype="FLOAT")
+    jvc = JaxVoiceConverter(jcfg, params, hubert_cfg=JaxHubertConfig(**HUBERT))
+    ref = jvc.voice_conversion(src, str(tmp_path / "jax.wav"), 3, 5, rng_seed=2)
+
+    wav48 = resample.resample(audio_io.read_wav(src)[0], sr, 48000)
+    n_spec = -(-len(wav48) // 7680) * 7680 // 512  # padded to the 48 kHz alignment unit
+    eps = np.array(jax.random.normal(jax.random.PRNGKey(2), (1, n_spec, 8), jnp.float32))
+    got = port.voice_conversion_array(wav48, 3, 5, eps=eps)
+    assert got.shape == ref.shape == ((len(wav48) // 512) * 512,)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+    out = str(tmp_path / "port.wav")
+    seeded = port.voice_conversion(src, out, 3, 5, rng_seed=2)
+    written, wsr = audio_io.read_wav(out)
+    assert wsr == 48000 and seeded.shape == got.shape
+    np.testing.assert_allclose(written, seeded, atol=2 ** -22)
 
 
 def test_output_lengths_match_jax():

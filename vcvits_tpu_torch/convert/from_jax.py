@@ -1,19 +1,21 @@
-"""JAX parameter tree (as numpy arrays) -> the port's state dict.
+"""JAX parameter trees (as numpy arrays) -> the port's state dicts.
 
 `params_from_jax(g_params, cfg)` takes the JAX package's generator
 parameters with every leaf a numpy array (for example
 `jax.tree.map(np.asarray, params)`) and returns a state dict for the port's
 module of the same subtree: `SynthesizerSVC` for the whole generator, or
-any submodule for a subtree. It imports no JAX. The rules, by leaf name:
+any submodule for a subtree. `disc_params_from_jax(d_params)` does the same
+for the discriminators' {"mpd": ..., "msd": ...} tree, for the port's
+`Discriminators` (models/discriminators.py). It imports no JAX. The rules,
+by leaf name:
 
 * flax `Dense.kernel` [in, out]       -> `weight` [out, in]   (kernel.T)
 * conv `kernel` / `v` [k, in, out]    -> `weight` / `v` [out, in, k]
 * ConvTranspose `v` [k, out, in]      -> `v` [in, out, k]     (same transpose)
-* weight-norm `g` [1, 1, n]           -> `g` [n, 1, 1]
+* 2-D conv `kernel` / `v` [kh, kw, in, out] -> [out, in, kh, kw]
+* weight-norm `g` [1, .., 1, n]       -> `g` [n, 1, .., 1]
 * HuBERT `conv_{i}_kernel`            -> `conv_{i}.weight`
 * `embedding`, LayerNorm `scale` / `gamma` -> `weight`;  `beta` -> `bias`
-
-The posterior encoder (`enc_q`) is not in the port and is dropped.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import torch
 from vcvits_tpu_torch.config import Config
 
 _HUBERT_CONV = re.compile(r"^conv_(\d+)_(kernel|bias)$")
-_NOT_PORTED = ("enc_q",)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -49,14 +50,15 @@ def _convert_leaf(path: str, arr: np.ndarray):
         i, kind = m.groups()
         name = f"{pre}conv_{i}.{'weight' if kind == 'kernel' else 'bias'}"
         return name, arr.transpose(2, 1, 0) if kind == "kernel" else arr
-    if leaf == "kernel":
+    if leaf in ("kernel", "v"):
+        name = pre + ("weight" if leaf == "kernel" else "v")
         if arr.ndim == 2:
-            return pre + "weight", arr.T
-        return pre + "weight", arr.transpose(2, 1, 0)
-    if leaf == "v":
-        return pre + "v", arr.transpose(2, 1, 0)
+            return name, arr.T
+        if arr.ndim == 4:
+            return name, arr.transpose(3, 2, 0, 1)
+        return name, arr.transpose(2, 1, 0)
     if leaf == "g":
-        return pre + "g", arr.reshape(-1, 1, 1)
+        return pre + "g", arr.reshape(-1, *([1] * (arr.ndim - 1)))
     if leaf in ("embedding", "scale", "gamma"):
         return pre + "weight", arr
     if leaf == "beta":
@@ -64,16 +66,21 @@ def _convert_leaf(path: str, arr: np.ndarray):
     return path, arr
 
 
+def _convert_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, arr in _flatten(tree).items():
+        name, val = _convert_leaf(path, arr)
+        if name in sd:
+            raise ValueError(f"two JAX leaves map to the port parameter {name}")
+        sd[name] = torch.tensor(np.ascontiguousarray(val), dtype=torch.float32)
+    return sd
+
+
 def params_from_jax(g_params: Mapping, cfg: Optional[Config] = None) -> Dict[str, torch.Tensor]:
     """Numpy JAX parameter tree -> float32 state dict. With `cfg`, the tree
     must be a whole generator of that configuration (checked on the decoder
     input, the upsampler width and the speaker table)."""
-    flat = {k: v for k, v in _flatten(g_params).items()
-            if k.split(".", 1)[0] not in _NOT_PORTED}
-    sd = {}
-    for path, arr in flat.items():
-        name, val = _convert_leaf(path, arr)
-        sd[name] = torch.tensor(val, dtype=torch.float32)
+    sd = _convert_tree(g_params)
     if cfg is not None:
         m = cfg.model
         expect = {"dec.conv_pre.v": (m.upsample_initial_channel, m.inter_channels, 7)}
@@ -84,3 +91,11 @@ def params_from_jax(g_params: Mapping, cfg: Optional[Config] = None) -> Dict[str
             if got != shape:
                 raise ValueError(f"{name}: expected {shape} for this config, got {got}")
     return sd
+
+
+def disc_params_from_jax(d_params: Mapping) -> Dict[str, torch.Tensor]:
+    """Numpy {"mpd": ..., "msd": ...} discriminator tree -> float32 state
+    dict of the port's `Discriminators` (keys `mpd.*`, `msd.*`)."""
+    if set(d_params) != {"mpd", "msd"}:
+        raise ValueError(f"expected the keys mpd and msd, got {sorted(d_params)}")
+    return _convert_tree(d_params)

@@ -1,10 +1,16 @@
 """Inference API: file-to-file any-to-any voice conversion on the GPU.
 
-Counterpart of vcvits_tpu/infer.py:VoiceConverter (the conversion path; the
-flow-swap `voice_conversion` is not in this slice). Resample the source to
-16 kHz, optional semitone pitch shift, pYIN -> coarse F0 on the host, then
-`SynthesizerSVC.infer` on the device, and write 48 kHz PCM_24. Inputs are
-padded to an alignment-unit boundary, as in JAX.
+Counterpart of vcvits_tpu/infer.py:VoiceConverter.
+
+* `convert`: resample the source to 16 kHz, optional semitone pitch shift,
+  pYIN -> coarse F0 on the host, then `SynthesizerSVC.infer` on the device,
+  and write 48 kHz PCM_24.
+* `voice_conversion`: the flow swap. Resample the source to 48 kHz, take
+  its spectrogram on the device (ops/stft_mel.py, kernel K3), then
+  `SynthesizerSVC.voice_conversion` from the source speaker to the target,
+  and write 48 kHz PCM_24.
+
+Inputs are padded to an alignment-unit boundary, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from vcvits_tpu_torch.dsp.pitch_shift import pitch_shift as shift_semitones
 from vcvits_tpu_torch.dsp.resample import resample
 from vcvits_tpu_torch.models.hubert import HubertConfig
 from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+from vcvits_tpu_torch.ops.stft_mel import spectrogram
 from vcvits_tpu_torch.utils.audio_io import read_wav, write_wav
 
 
@@ -111,3 +118,37 @@ class VoiceConverter:
                 write_wav(dst, out, self.cfg.data.target_sampling_rate, subtype="PCM_24")
                 outs.append(out if collect_audio else dst)
         return outs
+
+    def voice_conversion_array(self, wav48k: np.ndarray, sid_src: int, sid_tgt: int,
+                               rng_seed: int = 0, eps: Optional[np.ndarray] = None
+                               ) -> np.ndarray:
+        """One 48 kHz utterance of speaker sid_src -> the valid 48 kHz samples
+        in speaker sid_tgt's voice. `eps` [1, T_spec, inter] replaces the
+        posterior's seeded normal draw."""
+        d = self.cfg.data
+        dev = self.device
+        unit_y = self.unit * d.target_sampling_rate // d.source_sampling_rate
+        true_len = len(wav48k)
+        padded = int(np.ceil(max(true_len, 1) / unit_y) * unit_y)
+        wav = torch.as_tensor(np.pad(np.asarray(wav48k, np.float32), (0, padded - true_len)),
+                              device=dev)[None, :]
+        spec = spectrogram(wav, d.filter_length, d.hop_length, d.win_length)
+        gen = torch.Generator(device=dev).manual_seed(rng_seed)
+        o, y_mask, _ = self.gen.voice_conversion(
+            spec, torch.tensor([true_len // d.hop_length], dtype=torch.int32, device=dev),
+            torch.tensor([sid_src], dtype=torch.int64, device=dev),
+            torch.tensor([sid_tgt], dtype=torch.int64, device=dev), generator=gen,
+            eps=None if eps is None else torch.as_tensor(eps, device=dev))
+        n_valid = int(y_mask[0].float().sum().item()) * d.hop_length
+        return o[0, :n_valid, 0].float().cpu().numpy()
+
+    def voice_conversion(self, source_audio: str, target_audio: str, sid_src: int,
+                         sid_tgt: int, rng_seed: int = 0) -> np.ndarray:
+        """Any-to-any by the posterior + flow swap, file -> file (PCM_24 at
+        the target rate). The source must be audio of speaker sid_src."""
+        d = self.cfg.data
+        wav, sr = read_wav(source_audio)
+        out = self.voice_conversion_array(resample(wav, sr, d.target_sampling_rate), sid_src,
+                                          sid_tgt, rng_seed)
+        write_wav(target_audio, out, d.target_sampling_rate, subtype="PCM_24")
+        return out

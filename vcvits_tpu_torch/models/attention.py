@@ -3,18 +3,21 @@
 Counterpart of vcvits_tpu/models/attention.py: multi-head self-attention
 with learned relative K/V embeddings (window 4, shared across heads), the
 pad/reshape rel<->abs index shift, a -1e4 mask fill, the conv FFN and the
-post-LN `TransformerEncoder`. Inference only: dropout is not applied.
+post-LN `TransformerEncoder`. Dropout sits where the JAX package has it
+(on the attention weights, after the FFN's relu, on each sublayer's output)
+and acts only with deterministic=False, drawing from an explicit generator.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vcvits_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from vcvits_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, dropout
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -48,8 +51,9 @@ class RelativeMultiHeadAttention(nn.Module):
     across heads (the only configuration the conversion path uses)."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: int = 4, dtype=torch.float32):
+                 window_size: int = 4, p_dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
+        self.p_dropout = p_dropout
         self.n_heads = n_heads
         self.window_size = window_size
         self.k_channels = channels // n_heads
@@ -68,7 +72,8 @@ class RelativeMultiHeadAttention(nn.Module):
             self.emb_rel_k.copy_(torch.randn(self.emb_rel_k.shape, generator=gen) * std)
             self.emb_rel_v.copy_(torch.randn(self.emb_rel_v.shape, generator=gen) * std)
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C]; attn_mask: [B, 1, T, T]."""
         b, t, _ = x.shape
         h, d = self.n_heads, self.k_channels
@@ -82,7 +87,7 @@ class RelativeMultiHeadAttention(nn.Module):
         key_rel = _slice_relative_embeddings(self.emb_rel_k.to(self.dtype), t, self.window_size)
         scores = scores + _rel_to_abs(torch.matmul(q, key_rel.transpose(-1, -2)))
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = dropout(torch.softmax(scores, dim=-1), self.p_dropout, deterministic, generator)
         out = torch.matmul(p_attn, v)
         value_rel = _slice_relative_embeddings(self.emb_rel_v.to(self.dtype), t, self.window_size)
         out = out + torch.matmul(_abs_to_rel(p_attn), value_rel)
@@ -93,39 +98,46 @@ class ConvFFN(nn.Module):
     """Conv feed-forward block: conv -> relu -> conv, masked."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int, dtype=torch.float32):
+                 kernel_size: int, p_dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
+        self.p_dropout = p_dropout
         pad = ((kernel_size - 1) // 2, kernel_size // 2)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size, padding=pad, dtype=dtype)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size, padding=pad, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.conv_1(x * x_mask))
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(torch.relu(self.conv_1(x * x_mask)), self.p_dropout, deterministic,
+                    generator)
         return self.conv_2(x * x_mask) * x_mask
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int, kernel_size: int = 1, window_size: int = 4,
-                 dtype=torch.float32):
+                 n_layers: int, kernel_size: int = 1, p_dropout: float = 0.0,
+                 window_size: int = 4, dtype=torch.float32):
         super().__init__()
         self.n_layers = n_layers
+        self.p_dropout = p_dropout
         for i in range(n_layers):
             self.add_module(f"attn_{i}", RelativeMultiHeadAttention(
-                hidden_channels, hidden_channels, n_heads, window_size, dtype=dtype))
+                hidden_channels, hidden_channels, n_heads, window_size, p_dropout, dtype=dtype))
             self.add_module(f"norm1_{i}", LayerNorm(hidden_channels, dtype=dtype))
             self.add_module(f"ffn_{i}", ConvFFN(
-                hidden_channels, hidden_channels, filter_channels, kernel_size, dtype=dtype))
+                hidden_channels, hidden_channels, filter_channels, kernel_size, p_dropout,
+                dtype=dtype))
             self.add_module(f"norm2_{i}", LayerNorm(hidden_channels, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C]; x_mask: [B, T, 1]."""
         m = x_mask[..., 0]
         attn_mask = m[:, None, :, None] * m[:, None, None, :]
         x = x * x_mask
+        p = self.p_dropout
         for i in range(self.n_layers):
-            y = getattr(self, f"attn_{i}")(x, attn_mask)
-            x = getattr(self, f"norm1_{i}")(x + y)
-            y = getattr(self, f"ffn_{i}")(x, x_mask)
-            x = getattr(self, f"norm2_{i}")(x + y)
+            y = getattr(self, f"attn_{i}")(x, attn_mask, deterministic, generator)
+            x = getattr(self, f"norm1_{i}")(x + dropout(y, p, deterministic, generator))
+            y = getattr(self, f"ffn_{i}")(x, x_mask, deterministic, generator)
+            x = getattr(self, f"norm2_{i}")(x + dropout(y, p, deterministic, generator))
         return x * x_mask

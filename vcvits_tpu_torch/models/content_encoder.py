@@ -4,11 +4,13 @@ Counterpart of vcvits_tpu/models/content_encoder.py: pad the 16 kHz wav by
 40 samples each side, frozen HuBERT features -> `hubert_proj`, add the
 clipped pitch embedding, a relative-position transformer, then `proj`
 split into (m_p, logs_p). The frame mask is `wav_len // 320`, as in JAX.
+`hubert_features` (the train step's shared frozen features) skips the
+HuBERT forward; dropout acts only with deterministic=False.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +27,7 @@ HUBERT_PAD = 40  # (receptive_field - downsample) // 2 = (400-320)//2
 class HubertContentEncoder(nn.Module):
     def __init__(self, hubert_cfg: HubertConfig, out_channels: int, hidden_channels: int,
                  filter_channels: int, n_heads: int, n_layers: int, kernel_size: int,
-                 num_pitch: int, dtype=torch.float32):
+                 num_pitch: int, p_dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.out_channels = out_channels
         self.num_pitch = num_pitch
@@ -35,16 +37,21 @@ class HubertContentEncoder(nn.Module):
         self.emb_pitch = Embedding(num_pitch, hidden_channels, std=hidden_channels ** -0.5,
                                    dtype=dtype)
         self.encoder = TransformerEncoder(hidden_channels, filter_channels, n_heads,
-                                          n_layers, kernel_size, dtype=dtype)
+                                          n_layers, kernel_size, p_dropout, dtype=dtype)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1, dtype=dtype)
 
-    def forward(self, x_wav: torch.Tensor, x_wav_lengths: torch.Tensor, x_pitch: torch.Tensor
+    def forward(self, x_wav: torch.Tensor, x_wav_lengths: torch.Tensor, x_pitch: torch.Tensor,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                hubert_features: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """x_wav: [B, T] 16 kHz; x_pitch: [B, T//320] int bins.
 
         Returns (x_out, m_p, logs_p, x_mask) on the 50 Hz frame axis."""
-        with torch.no_grad():
-            feats = self.hubert(F.pad(x_wav, (HUBERT_PAD, HUBERT_PAD)))
+        if hubert_features is None:
+            with torch.no_grad():
+                feats = self.hubert(F.pad(x_wav, (HUBERT_PAD, HUBERT_PAD)))
+        else:
+            feats = hubert_features.detach()
         h = self.hubert_proj(feats)
         t50 = h.shape[1]
         pitch = torch.clamp(x_pitch[:, :t50], 0, self.num_pitch - 1)
@@ -52,7 +59,7 @@ class HubertContentEncoder(nn.Module):
 
         frame_lengths = x_wav_lengths.to(torch.int64) // 320
         x_mask = sequence_mask(frame_lengths, t50).to(h.dtype)
-        x_out = self.encoder(h * x_mask, x_mask)
+        x_out = self.encoder(h * x_mask, x_mask, deterministic, generator)
         stats = self.proj(x_out) * x_mask
         m = stats[..., :self.out_channels]
         logs = stats[..., self.out_channels:]

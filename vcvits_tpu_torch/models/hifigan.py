@@ -4,8 +4,13 @@ Counterpart of vcvits_tpu/models/hifigan.py on its unfolded path:
 `conv_pre`, the speaker `cond` Dense added after it, per stage
 lrelu(0.1) -> ConvTranspose (padding (k-u)//2) -> MRF (ResBlock1 blocks
 summed then divided by their count), a final lrelu of slope 0.01,
-`conv_post` and tanh. Every stage's MRF goes through ops/mrf.py (kernel K1
-on a CUDA tensor). The JAX package's space-to-depth tail folding and
+`conv_post` and tanh. With fused_mrf=True (inference: `infer`,
+`voice_conversion`) every stage's MRF goes through ops/mrf.py (kernel K1 on
+a CUDA tensor), on weights folded once; K1 has no backward. With
+fused_mrf=False (the training forward, as in JAX) every stage's MRF is
+K1's plain version, `mrf_plain`, on weights folded on each call with
+their graph, so the res blocks train. The caller chooses, as in JAX;
+nothing looks at requires_grad. The JAX package's space-to-depth tail folding and
 dilation phase split are exact TPU rewrites of these convs and are not
 carried over; int8 and ResBlock2 are not ported and raise.
 """
@@ -19,7 +24,7 @@ from torch import nn
 
 from vcvits_tpu_torch.models.layers import (
     LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, leaky_relu)
-from vcvits_tpu_torch.ops.mrf import Block, mrf
+from vcvits_tpu_torch.ops.mrf import Block, mrf, mrf_plain
 
 
 class ResBlock1(nn.Module):
@@ -44,14 +49,15 @@ class ResBlock1(nn.Module):
 
     def stacked_weights(self, dtype: torch.dtype) -> Block:
         """(w1 [D, k, C, C], b1 [D, C], w2, b2) in ops/mrf.py's layout, folded
-        in float32 and cast to `dtype`, as fold_resblock_weights does."""
+        in float32 and cast to `dtype`, as fold_resblock_weights does;
+        differentiable in the block's parameters."""
         def stack(prefix, attr):
             convs = [getattr(self, f"{prefix}_{i}") for i in range(len(self.dilations))]
             if attr == "kernel":
                 ts = [c.kernel().permute(2, 1, 0) for c in convs]  # [k, Cin, Cout]
             else:
                 ts = [c.bias for c in convs]
-            return torch.stack(ts).detach().to(dtype).contiguous()
+            return torch.stack(ts).to(dtype).contiguous()
         return (stack("c1", "kernel"), stack("c1", "bias"),
                 stack("c2", "kernel"), stack("c2", "bias"))
 
@@ -91,18 +97,23 @@ class HiFiGANGenerator(FoldCache):
             ch = ch_out
         self.conv_post = Conv1d(ch, 1, 7, padding=(3, 3), weight_norm=True, dtype=dtype)
 
-    def mrf_weights(self) -> List[List[Block]]:
-        """Per stage, its blocks' weights in ops/mrf.py's layout."""
-        return self.folded(lambda: [
-            [getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
-             for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)])
+    def _stacked(self) -> List[List[Block]]:
+        return [[getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
+                 for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)]
 
-    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def mrf_weights(self) -> List[List[Block]]:
+        """Per stage, its blocks' weights in ops/mrf.py's layout, folded
+        without a graph and cached."""
+        return self.folded(self._stacked)
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
+                fused_mrf: bool = True) -> torch.Tensor:
         x = self.conv_pre(x)
         if g is not None and self.cond is not None:
             x = x + self.cond(g)[:, None, :]
-        for i, blocks in enumerate(self.mrf_weights()):
+        stages, fuse = (self.mrf_weights(), mrf) if fused_mrf else (self._stacked(), mrf_plain)
+        for i in range(self.n_stages):
             x = getattr(self, f"up_{i}")(leaky_relu(x, LRELU_SLOPE)).contiguous()
-            x = mrf(x, blocks, self.kernel_sizes, self.dilations)
+            x = fuse(x, stages[i], self.kernel_sizes, self.dilations)
         x = self.conv_post(leaky_relu(x, 0.01))  # torch's default slope, as in JAX
         return torch.tanh(x)

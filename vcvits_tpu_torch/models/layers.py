@@ -17,7 +17,7 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,17 @@ LRELU_SLOPE = 0.1
 
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax nn.Dropout: keep each element with probability 1-rate and scale
+    it by 1/(1-rate); the identity when deterministic or rate == 0. The keep
+    mask is drawn from `generator` (on x's device), or the default one."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def torch_same_padding(kernel_size: int, dilation: int = 1) -> Tuple[int, int]:
@@ -126,24 +137,47 @@ class Embedding(nn.Module):
         return F.embedding(idx, self.weight).to(self.dtype)
 
 
+def spectral_normalize(weight: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
+    """weight / sigma_max, the spectral-norm parametrisation as the JAX
+    package computes it: `n_iter` power iterations from the fixed uniform
+    start vector on every call (no persistent `u`, unlike
+    torch.nn.utils.spectral_norm), gradients through sigma. `weight` has
+    the output channel first; sigma_max does not depend on how the other
+    axes are flattened."""
+    out = weight.shape[0]
+    w = weight.reshape(out, -1).t().float()
+    u = torch.full((out,), 1.0 / math.sqrt(out), dtype=torch.float32, device=weight.device)
+    for _ in range(n_iter):
+        v = w @ u
+        v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-12)
+        u = w.t() @ v
+        u = u / torch.clamp_min(torch.linalg.vector_norm(u), 1e-12)
+    sigma = v @ (w @ u)
+    return (weight / torch.clamp_min(sigma, 1e-12)).to(weight.dtype)
+
+
 class _ConvBase(nn.Module):
     """A conv kernel with optional weight norm over every axis but the first
-    (out channels for Conv1d, in channels for ConvTranspose1d), and a bias."""
+    (out channels for Conv1d / Conv2dNorm, in channels for ConvTranspose1d)
+    or spectral norm, and a bias."""
 
     def _make_params(self, shape, out_features: int, bias: bool, weight_norm: bool,
-                     kernel_init: str) -> None:
+                     kernel_init: str, spectral_norm: bool = False) -> None:
         self.kernel_init = kernel_init
-        self.weight_norm = weight_norm
-        if weight_norm:
+        self.weight_norm = weight_norm and not spectral_norm
+        self.spectral_norm = spectral_norm
+        if self.weight_norm:
             self.v = nn.Parameter(torch.empty(shape))
-            self.g = nn.Parameter(torch.empty(shape[0], 1, 1))
+            self.g = nn.Parameter(torch.empty(shape[0], *([1] * (len(shape) - 1))))
+        elif spectral_norm:
+            self.v = nn.Parameter(torch.empty(shape))
         else:
             self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        p = self.v if self.weight_norm else self.weight
-        _fill_kernel(p, self.kernel_init, p.shape[1] * p.shape[2], gen)
+        p = self.weight if not (self.weight_norm or self.spectral_norm) else self.v
+        _fill_kernel(p, self.kernel_init, math.prod(p.shape[1:]), gen)
         if self.weight_norm:
             with torch.no_grad():
                 self.g.copy_(_norm_except(self.v, 0))
@@ -152,9 +186,11 @@ class _ConvBase(nn.Module):
                 self.bias.zero_()
 
     def kernel(self) -> torch.Tensor:
-        """The float32 kernel, weight norm folded."""
+        """The float32 kernel, weight norm or spectral norm folded."""
         if self.weight_norm:
             return self.g * self.v / torch.clamp_min(_norm_except(self.v, 0), 1e-12)
+        if self.spectral_norm:
+            return spectral_normalize(self.v)
         return self.weight
 
 
@@ -163,14 +199,15 @@ class Conv1d(_ConvBase):
 
     Kernel [out, in/groups, k]. `padding` is "same" (symmetric, odd kernels),
     "valid", or an explicit (lo, hi) pair. `weight_norm=True` stores (v, g)
-    and folds them per call.
+    and folds them per call; `spectral_norm=True` stores `v` and divides it
+    by its largest singular value per call (`spectral_normalize`).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  padding: Union[str, Tuple[int, int]] = "same", bias: bool = True,
                  weight_norm: bool = False, kernel_init: str = "lecun_normal",
-                 dtype=torch.float32):
+                 spectral_norm: bool = False, dtype=torch.float32):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
         if padding == "same":
@@ -181,7 +218,7 @@ class Conv1d(_ConvBase):
             self.pad = tuple(padding)
         self.dtype = dtype
         self._make_params((out_channels, in_channels // groups, kernel_size), out_channels,
-                          bias, weight_norm, kernel_init)
+                          bias, weight_norm, kernel_init, spectral_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -218,6 +255,33 @@ class ConvTranspose1d(_ConvBase):
         y = F.conv_transpose1d(x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
                                stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
+
+
+class Conv2dNorm(_ConvBase):
+    """2-D conv for the period discriminators on [B, H, W, C] (NHWC) tensors,
+    the JAX package's layout. Kernel [out, in, kh, kw]; weight norm (the
+    default) or spectral norm over every axis but the output channel.
+    `padding` is ((top, bottom), (left, right))."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
+                 strides: Tuple[int, int] = (1, 1),
+                 padding: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0)),
+                 weight_norm: bool = True, spectral_norm: bool = False,
+                 kernel_init: str = "lecun_normal", dtype=torch.float32):
+        super().__init__()
+        self.strides = tuple(strides)
+        self.pad = (padding[1][0], padding[1][1], padding[0][0], padding[0][1])  # F.pad order
+        self.dtype = dtype
+        self._make_params((out_channels, in_channels, *kernel_size), out_channels, True,
+                          weight_norm, kernel_init, spectral_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        xt = x.to(dt).permute(0, 3, 1, 2)
+        if any(self.pad):
+            xt = F.pad(xt, self.pad)
+        y = F.conv2d(xt, self.kernel().to(dt), self.bias.to(dt), stride=self.strides)
+        return y.permute(0, 2, 3, 1)
 
 
 class FoldCache(nn.Module):

@@ -2,7 +2,8 @@
 
 Counterpart of vcvits_tpu/models/wavenet.py: n_layers of [dilated conv ->
 gate with the speaker conditioning -> 1x1 res/skip], all weight-normed. The
-last layer's res_skip has H outputs (skip only), not 2H.
+last layer's res_skip has H outputs (skip only), not 2H. The gate goes
+through ops/fused_gate.py (kernel K5 on a CUDA tensor, with its backward).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from vcvits_tpu_torch.models.layers import Conv1d
-from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply
+from vcvits_tpu_torch.ops.fused_gate import fused_gate
 
 
 class WN(nn.Module):
@@ -53,9 +54,8 @@ class WN(nn.Module):
             else None
         for i in range(self.n_layers):
             x_in = getattr(self, f"in_{i}")(x)
-            g_l = cond[:, :, i * 2 * h:(i + 1) * 2 * h] if cond is not None \
-                else torch.zeros_like(x_in)
-            acts = fused_add_tanh_sigmoid_multiply(x_in, g_l, h)
+            g_l = cond[:, :, i * 2 * h:(i + 1) * 2 * h] if cond is not None else None
+            acts = fused_gate(x_in, g_l, h)
             res_skip = getattr(self, f"res_skip_{i}")(acts)
             if i < self.n_layers - 1:
                 x = (x + res_skip[..., :h]) * x_mask

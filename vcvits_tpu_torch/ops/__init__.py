@@ -2,6 +2,8 @@
 
 * `mrf` (K1): a HiFi-GAN stage's MRF, csrc/mrf.cu.
 * `flow_coupling` (K2): one residual-coupling reverse, csrc/flow_coupling.cu.
+* `stft_mel` (K3): STFT magnitude + log-mel in one pass, csrc/stft_mel.cu.
+* `fused_gate` (K5): the WaveNet gate, forward and backward, csrc/fused_gate.cu.
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
 CUDA tensor; `_build.LAUNCHES` counts the kernel launches.

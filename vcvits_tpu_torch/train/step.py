@@ -1,0 +1,279 @@
+"""The GAN train step: generator update, then discriminator update.
+
+Counterpart of vcvits_tpu/train/step.py:make_train_step. One call of
+`TrainStep` on a batch:
+
+1. Frozen features: the 16 kHz source is smoothed (STFT -> iSTFT), the
+   frozen HuBERT runs once on it and its features are shared by both
+   generator forwards (`share_frozen_hubert`), and the 48 kHz target's
+   spectrogram and log-mel come from ops/stft_mel.py (kernel K3, one
+   launch).
+2. Generator: the training forward (posterior + flow, whose WN gates are
+   K5 with its backward; the decoder's differentiable path), both
+   discriminators on the matching target segment, and
+   total = s_gen + s_fm + p_gen + p_fm + c_mel * mel-L1 + c_kl * KL.
+   Backward, global grad norm, AdamW step.
+3. Discriminator: with `d_recompute_forward` (the default) the generator
+   forward runs again with the updated weights and fresh draws, no
+   gradient; then the LS-GAN loss of both discriminators, backward, grad
+   norm, AdamW step.
+
+Every random draw is explicit: `StepDraws` injects the posterior noise and
+the segment starts of either forward (tests inject JAX's), and what is not
+injected comes from the step's generators. The metrics dict has the JAX
+step's keys, as 0-dim float32 tensors. Training runs in float32 here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from vcvits_tpu_torch.config import Config
+from vcvits_tpu_torch.dsp.spectrogram import mel_spectrogram
+from vcvits_tpu_torch.models.content_encoder import HUBERT_PAD
+from vcvits_tpu_torch.models.discriminators import Discriminators
+from vcvits_tpu_torch.models.hubert import HubertConfig
+from vcvits_tpu_torch.models.layers import init_weights
+from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
+from vcvits_tpu_torch.train.audio_pipeline import smooth_source
+from vcvits_tpu_torch.train.losses import (
+    discriminator_loss, feature_loss, generator_loss, kl_loss)
+from vcvits_tpu_torch.train.state import (
+    exponential_epoch_schedule, make_optimizer, trainable_parameters)
+from vcvits_tpu_torch.utils.device import resolve_device
+from vcvits_tpu_torch.utils.masking import slice_segments
+
+Batch = Mapping[str, torch.Tensor]
+
+
+@dataclass
+class StepDraws:
+    """Injected draws of one step; None means draw from the step's generator.
+    eps: posterior noise [B, T_spec, inter]; ids_str: segment starts [B] in
+    spectrogram frames. `*2` are those of the D-step's recomputed forward."""
+
+    eps: Optional[torch.Tensor] = None
+    ids_str: Optional[torch.Tensor] = None
+    eps2: Optional[torch.Tensor] = None
+    ids_str2: Optional[torch.Tensor] = None
+
+
+def _grad_norm(params) -> torch.Tensor:
+    """optax.global_norm of the gradients (a missing gradient counts 0),
+    summed in float64: a float32 sum over the discriminators' 50M squares
+    drifts by 1e-4."""
+    norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float64)
+             for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
+
+
+class _Sections:
+    """CUDA events at the step's section boundaries when `out` is a dict
+    (and the step runs on the card); `done()` writes each section's device
+    ms into it. Nothing is recorded when `out` is None."""
+
+    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
+        self.out = out if device.type == "cuda" else None
+        self.marks = []
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        if self.out is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+
+    def done(self) -> None:
+        if self.out is None:
+            return
+        self.marks[-1][1].synchronize()
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            self.out[name] = self.out.get(name, 0.0) + a.elapsed_time(b)
+
+
+def _fill_missing_grads(params) -> None:
+    """A zero gradient where none arrived, so AdamW still applies its weight
+    decay, as optax does to every leaf."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+class TrainStep:
+    """Generator, discriminators, their optimizers and the step function.
+
+    Builds on `device` ("cuda" by default; raises when no GPU is present
+    unless device="cpu"). Weights come from the seeded initialisers, or
+    from `g_state` / `d_state` (for example params_from_jax /
+    disc_params_from_jax of the JAX package's trees)."""
+
+    def __init__(self, cfg: Config, device="cuda",
+                 hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
+                 g_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 d_state: Optional[Mapping[str, torch.Tensor]] = None):
+        device = resolve_device(device)
+        if cfg.train.remat_policy != "none":
+            raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
+        self.cfg = cfg
+        self.device = device
+        self.gen = SynthesizerSVC.from_config(cfg, device=device,
+                                              seed=seed if g_state is None else None,
+                                              hubert_cfg=hubert_cfg)
+        if g_state is not None:
+            self.gen.load_state_dict(g_state)
+        self.disc = Discriminators.from_config(cfg)
+        if d_state is not None:
+            self.disc.load_state_dict(d_state)
+        else:
+            init_weights(self.disc, seed + 1)
+        self.disc.to(device)
+        self.gen.train()
+        self.disc.train()
+        for p in self.gen.enc_p.hubert.parameters():
+            p.requires_grad_(False)
+        self.g_params = trainable_parameters(self.gen)
+        self.d_params = list(self.disc.parameters())
+        self.g_opt = make_optimizer(self.g_params, cfg)
+        self.d_opt = make_optimizer(self.d_params, cfg)
+        self.schedule = exponential_epoch_schedule(cfg)
+        self.step = 0
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def _features(self, batch: Batch):
+        """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen."""
+        d, t = self.cfg.data, self.cfg.train
+        with torch.no_grad():
+            hub = batch.get("hubert_features")
+            if hub is not None:
+                x_wav = batch["x_wav"]
+            else:
+                x_wav = smooth_source(batch["x_wav"], d.filter_length, d.hop_length,
+                                      d.win_length)
+                if t.share_frozen_hubert:
+                    hub = self.gen.enc_p.hubert(F.pad(x_wav, (HUBERT_PAD, HUBERT_PAD)))
+            y_spec, y_mel = spectrogram_mel(batch["y_wav"], d.filter_length, d.n_mel_channels,
+                                            d.target_sampling_rate, d.hop_length, d.win_length,
+                                            d.mel_fmin, d.mel_fmax)
+        return x_wav, hub, y_spec, y_mel
+
+    def _gen_forward(self, batch: Batch, x_wav, hub, y_spec, eps, ids_str):
+        return self.gen(x_wav, batch["x_wav_lengths"], batch["x_pitch"], y_spec,
+                        batch["y_wav_lengths"] // self.cfg.data.hop_length,
+                        batch.get("sid"), deterministic=False, hubert_features=hub,
+                        eps=eps, ids_str=ids_str, generator=self.generator,
+                        dropout_generator=self.dropout_generator)
+
+    def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
+        hop = self.cfg.data.hop_length
+        return slice_segments(batch["y_wav"][:, :, None], ids * hop,
+                              self.cfg.train.segment_size)
+
+    def _mel_of(self, wav: torch.Tensor) -> torch.Tensor:
+        d = self.cfg.data
+        return mel_spectrogram(wav, d.filter_length, d.n_mel_channels, d.target_sampling_rate,
+                               d.hop_length, d.win_length, d.mel_fmin, d.mel_fmax)
+
+    def _set_lr(self, lr: float) -> None:
+        for opt in (self.g_opt, self.d_opt):
+            for group in opt.param_groups:
+                group["lr"] = lr
+
+    def __call__(self, batch: Batch, draws: Optional[StepDraws] = None,
+                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+        """One step on a batch of padded tensors on the step's device:
+        x_wav [B, Tx] 16 kHz, x_wav_lengths [B], x_pitch [B, Tx//320],
+        y_wav [B, Ty] 48 kHz, y_wav_lengths [B], sid [B]. With `timings`
+        (a dict) on the card, each section's device ms is added to it."""
+        draws = draws or StepDraws()
+        sections = _Sections(timings, self.device)
+        lr = self.schedule(self.step)
+        self._set_lr(lr)
+        feats = self._features(batch)
+        sections.mark("features (smooth_source, HuBERT, K3)")
+        g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
+        d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
+        sections.done()
+        self.step += 1
+        metrics = {"learning_rate": torch.tensor(lr, dtype=torch.float32),
+                   **g_metrics, **d_metrics}
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _generator_step(self, batch: Batch, feats, draws: StepDraws, sections: _Sections):
+        """Forward, losses, backward and AdamW step of the generator (the
+        discriminators get no gradient) -> (metrics, output wave, segment
+        starts)."""
+        cfg, t = self.cfg, self.cfg.train
+        x_wav, hub, y_spec, y_mel = feats
+        self.disc.requires_grad_(False)
+        o, ids, _, y_mask, (_, z_p, m_p, logs_p, _, logs_q) = self._gen_forward(
+            batch, x_wav, hub, y_spec, draws.eps, draws.ids_str)
+        sections.mark("G forward")
+        y_seg = self._target_segment(batch, ids)
+        (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
+        loss_p_fm = feature_loss(p_fr, p_fg)
+        loss_s_fm = feature_loss(s_fr, s_fg)
+        loss_p_gen, _ = generator_loss(p_lg)
+        loss_s_gen, _ = generator_loss(s_lg)
+        o_mel = self._mel_of(o[:, :, 0])
+        y_mel_slice = slice_segments(y_mel, ids, t.segment_size // cfg.data.hop_length)
+        loss_mel = torch.mean(torch.abs(o_mel - y_mel_slice)) * t.c_mel
+        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl
+        loss_g = (loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_mel + loss_kl
+        sections.mark("G losses (MPD + MSD forward, mel, KL)")
+        self.g_opt.zero_grad(set_to_none=True)
+        loss_g.backward()
+        sections.mark("G backward")
+        self.disc.requires_grad_(True)
+        _fill_missing_grads(self.g_params)
+        grad_norm_g = _grad_norm(self.g_params)
+        if t.grad_clip is not None:
+            torch.nn.utils.clip_grad_value_(self.g_params, t.grad_clip)
+        self.g_opt.step()
+        sections.mark("G grad norm + AdamW")
+        metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
+                   "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
+                   "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
+                   "loss/g/mel": loss_mel, "loss/g/kl": loss_kl}
+        return metrics, o, ids
+
+    def _discriminator_step(self, batch: Batch, feats, o: Optional[torch.Tensor],
+                            ids: Optional[torch.Tensor], draws: StepDraws,
+                            sections: _Sections) -> Dict[str, torch.Tensor]:
+        """LS-GAN loss, backward and AdamW step of the discriminators, on the
+        generator recomputed with its current weights (`d_recompute_forward`)
+        or on the G step's `o` and `ids` -> metrics."""
+        t = self.cfg.train
+        x_wav, hub, y_spec, _ = feats
+        with torch.no_grad():
+            if t.d_recompute_forward:
+                o2, ids2 = self._gen_forward(batch, x_wav, hub, y_spec, draws.eps2,
+                                             draws.ids_str2)[:2]
+            else:
+                o2, ids2 = o.detach(), ids
+        sections.mark("D-step generator recompute")
+        y_seg2 = self._target_segment(batch, ids2)
+        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg2, o2)
+        loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
+        loss_s, s_r, s_g = discriminator_loss(s_lr, s_lg)
+        loss_d = loss_p + loss_s
+        sections.mark("D forward + loss")
+        self.d_opt.zero_grad(set_to_none=True)
+        loss_d.backward()
+        sections.mark("D backward")
+        _fill_missing_grads(self.d_params)
+        grad_norm_d = _grad_norm(self.d_params)
+        if t.grad_clip is not None:
+            torch.nn.utils.clip_grad_value_(self.d_params, t.grad_clip)
+        self.d_opt.step()
+        sections.mark("D grad norm + AdamW")
+        metrics = {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d,
+                   "loss/d/p": loss_p, "loss/d/s": loss_s}
+        for name, terms in (("d_p_r", p_r), ("d_p_g", p_g), ("d_s_r", s_r), ("d_s_g", s_g)):
+            metrics.update({f"loss/{name}/{i}": v for i, v in enumerate(terms)})
+        return metrics

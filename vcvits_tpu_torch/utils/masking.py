@@ -1,10 +1,13 @@
-"""Masks and nearest-neighbour time interpolation, [B, T, C] layout.
+"""Masks, segment slicing and nearest-neighbour time interpolation, [B, T, C].
 
-Counterparts of vcvits_tpu/utils/masking.py:sequence_mask and
+Counterparts of vcvits_tpu/utils/masking.py (sequence_mask, slice_segments,
+rand_slice_segments) and
 vcvits_tpu/models/synthesizer.py:nearest_interp. Masks are [B, T, 1] floats.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,3 +28,30 @@ def nearest_interp(x: torch.Tensor, t_out: int) -> torch.Tensor:
     t_in = x.shape[1]
     idx = torch.arange(t_out, device=x.device) * t_in // t_out
     return x[:, idx, :]
+
+
+def slice_segments(x: torch.Tensor, ids_str: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """[B, T, C] -> [B, segment_size, C], row b from ids_str[b], the start
+    clipped to [0, T - segment_size] as lax.dynamic_slice does."""
+    b, t, _ = x.shape
+    start = torch.clamp(ids_str.to(torch.int64), 0, t - segment_size)
+    idx = start[:, None] + torch.arange(segment_size, device=x.device)[None, :]
+    return x[torch.arange(b, device=x.device)[:, None], idx]
+
+
+def rand_slice_segments(x: torch.Tensor, x_lengths: Optional[torch.Tensor], segment_size: int,
+                        generator: Optional[torch.Generator] = None,
+                        ids_str: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random segment per row, start = floor(u * max(len - segment_size + 1, 1))
+    with u ~ U[0, 1) from `generator` (on x's device); `ids_str` [B] replaces
+    the draw. Returns (segments [B, segment_size, C], ids_str [B] int32)."""
+    b, t, _ = x.shape
+    if ids_str is None:
+        if x_lengths is None:
+            x_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        ids_str_max = torch.clamp_min(x_lengths.to(torch.int32) - segment_size + 1, 1)
+        u = torch.rand(b, generator=generator, device=x.device)
+        ids_str = torch.floor(u * ids_str_max.to(u.dtype)).to(torch.int32)
+    ids_str = ids_str.to(device=x.device, dtype=torch.int32)
+    return slice_segments(x, ids_str, segment_size), ids_str
