@@ -19,10 +19,17 @@
    * stft_mel (K3): the train step's 16 x 4 s targets (spec + log-mel) and
      one padded 10 s voice_conversion source (spec only); spec max |err|
      <= 1e-4 x max |spec|, log-mel max |err| <= 1e-4; also the time of
-     torch.stft + one fbank matmul (library_ms, a yardstick only).
+     torch.stft + one fbank matmul (library_ms, a yardstick only). The
+     bound of K3 and K4 counts the work of the function, a real FFT per
+     frame, not the kernels' direct DFT (stft_bound_ms).
    * fused_gate (K5): forward and backward on [16, 375, 256], against the
      plain op and its autograd, max |err| <= 1e-6 (grad_b, a sum over 375
      frames, <= 375e-6).
+   * mel_spectrogram (K4, the mel-only instance of stft_mel): the
+     validation shape, one 10 s clip at 48 kHz (937 frames), and 16 x 4 s;
+     log-mel max |err| <= 1e-4 against its plain version and <= 1e-6
+     against K3's mel on the same input; also torch.stft + one fbank
+     matmul (library_ms).
 4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
    with the plain path on the CPU, same weights and noise, and must agree
@@ -48,7 +55,21 @@
    and of a train step (CUDA events), and one of each under torch.profiler
    (device-busy time, idle share, costliest kernels), follow each path's
    counted run.
-7. Prints the launches of each path (counters set to 0 just before each
+7. Path C (the training loop), full widths, float32, TF32 off: 40
+   training and 8 validation synthetic 2-4 s WAVs at 48 kHz (a known f0
+   contour, 4 speakers), `preprocess` in 8 processes, then
+   Trainer.fit(max_steps=6) with log_interval 1 and validation and
+   checkpoints every 3 steps. The default device_data_cache "auto" must
+   pick DeviceBatcher; launches around the fit are per step K3 1, K5 64
+   forward and 32 backward, per validation K4 4, K1 72, K2 4. A second
+   Trainer on the workdir resumes at 6 with every tensor as saved and
+   reaches 8; request_stop() before a fit saves step 0; epoch 0 of
+   BucketedLoader copied to the card equals DeviceBatcher's bit for bit;
+   validate's metrics are in range; VoiceConverter.from_checkpoint
+   converts a validation file with length y_mask.sum() * hop. Prints
+   ms/step, the loader-wait share, ms per validate, the checkpoint's
+   blocking ms, write seconds and size, restore seconds and peak memory.
+8. Prints the launches of each path (counters set to 0 just before each
    path and read just after), a `kernels` JSON line, then, last, the
    result line {"ok": true, "device": {...}}.
 
@@ -60,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -79,11 +101,13 @@ FLOW_FRAMES, FLOW_CH, FLOW_HID, FLOW_LAYERS, FLOW_K, N_FLOWS = 930, 128, 128, 4,
 SPEAKERS = (3, 77, 411)
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "48k_base.json")
 STFT_TOL = 1e-4   # spec: x max |spec|; log-mel: absolute
+MEL_K3_TOL = 1e-6  # K4's log-mel against K3's, same sums: absolute
 GATE_TOL = 1e-6   # absolute, fp32 elementwise
 TRAIN_RTOL = 1e-3  # card vs CPU, one train step, every loss and grad norm
 PATH_A_PADDED = 483840  # a 10 s 48 kHz source padded to the 7680-sample unit
 GATE_SHAPE = (16, 375, 128)  # the train step's posterior WN: B, spectrogram frames, H
 N_TRAIN_STEPS = 5
+PATH_C_STEPS, PATH_C_RESUME_TO = 6, 8
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -122,6 +146,22 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor, bf16: bool = False):
 def bound_ms(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def stft_bound_ms(b: int, t: int, rows: int, n_fft: int, n_mels: int, spec: bool, mel: bool):
+    """The least time for |STFT| (spec) and/or log-mel (mel) of y [b, t]
+    over `rows` frames, counted on the work the function needs, not on
+    K3/K4's direct DFT: per frame a real FFT (2.5 n_fft log2 n_fft
+    operations), the window, the magnitude (4 per bin), and for the mel
+    the 2 F n_mels product and the log; bytes: y once, each output once,
+    the fbank once."""
+    n_freq = n_fft // 2 + 1
+    per_frame = 2.5 * n_fft * float(np.log2(n_fft)) + n_fft + 4 * n_freq
+    nbytes = b * t + (rows * n_freq if spec else 0)
+    if mel:
+        per_frame += 2 * n_freq * n_mels + n_mels
+        nbytes += n_freq * n_mels + rows * n_mels
+    return bound_ms(rows * per_frame, 4 * nbytes, FP32_FLOPS)
 
 
 def info_line() -> str:
@@ -440,11 +480,8 @@ def stft_phase(rng, dev, _build):
                                  f"{STFT_TOL * top:.3e}), log-mel max |err| {mel_err:.3e}")
         ms, launches = timed(kernel, _build, "stft_mel")
         plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
-        rows = spec.shape[0] * spec.shape[1]
-        flops = 4 * rows * n_fft * n_freq + (2 * rows * n_freq * n_mels if with_mel else 0)
-        nbytes = 4 * (b * t + 2 * n_fft * n_freq + rows * n_freq
-                      + ((n_freq + rows) * n_mels if with_mel else 0))
-        b_ms, b_by = bound_ms(flops, nbytes, FP32_FLOPS)
+        b_ms, b_by = stft_bound_ms(b, t, spec.shape[0] * spec.shape[1], n_fft, n_mels,
+                                   spec=True, mel=with_mel)
         print(f"stft_mel {label} [{b},{t}] -> [{spec.shape[0]},{spec.shape[1]},{n_freq}]"
               f"{' + mel' if with_mel else ''}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (torch.stft + matmul, max |diff| {lib_err:.3e}) "
@@ -510,6 +547,57 @@ def gate_phase(rng, dev, _build):
             "max_abs_err": errs[0], "wrapper_ms": wrap_ms, "ms_backward": bwd_ms,
             "autograd_ms_backward": bwd_wrap_ms, "plain_autograd_ms_backward": bwd_plain_ms,
             "bound_ms_backward": bwd_bound, "max_abs_err_backward": max(errs[1:])}
+
+
+def mel_phase(rng, dev, _build):
+    """K4 at the validation shape (one 10 s clip, 937 frames) and 16 x 4 s."""
+    import torch.nn.functional as F
+
+    from vcvits_tpu_torch.dsp.spectrogram import hann_window, mel_filterbank
+    from vcvits_tpu_torch.ops.stft_mel import (
+        mel_spectrogram, mel_spectrogram_plain, spectrogram_mel)
+
+    n_fft, hop, n_mels, sr = 2048, 512, 128, 48000
+    fbank = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels).T.copy(), device=dev)
+    window = torch.as_tensor(hann_window(n_fft), device=dev)
+    out = {}
+    for label, b, t in (("validation 1 x 10 s", 1, 10 * 48000), ("16 x 4 s", 16, 4 * 48000)):
+        n = np.arange(t) / sr
+        tone = sum(0.2 / (h + 1) * np.sin(2 * np.pi * 170.0 * (h + 1) * n) for h in range(10))
+        y = torch.tensor(tone[None, :] + 0.02 * rng.standard_normal((b, t)), dtype=torch.float32,
+                         device=dev)
+        kernel = lambda: mel_spectrogram(y, n_fft, n_mels, sr, hop, n_fft)  # noqa: E731
+        plain = lambda: mel_spectrogram_plain(y, n_fft, n_mels, sr, hop, n_fft)  # noqa: E731
+
+        def library():
+            yp = F.pad(y[:, None, :], ((n_fft - hop) // 2,) * 2, mode="reflect")[:, 0]
+            st = torch.stft(yp, n_fft, hop, n_fft, window=window, center=False,
+                            return_complex=True)
+            spec = torch.sqrt(st.real ** 2 + st.imag ** 2 + 1e-6).transpose(1, 2)
+            return torch.log(torch.clamp_min(spec @ fbank, 1e-5))
+
+        mel, ref, k3_mel, lib = kernel(), plain(), spectrogram_mel(y, n_fft, n_mels, sr, hop,
+                                                                   n_fft)[1], library()
+        torch.cuda.synchronize()
+        err = (mel - ref).abs().max().item()
+        k3_err = (mel - k3_mel).abs().max().item()
+        lib_err = (lib - ref).abs().max().item()
+        if not (err <= STFT_TOL and k3_err <= MEL_K3_TOL and torch.isfinite(mel).all()
+                and mel.shape == ref.shape):
+            raise AssertionError(f"mel_spectrogram {label}: log-mel max |err| {err:.3e} (limit "
+                                 f"{STFT_TOL}), against K3's mel {k3_err:.3e} (limit "
+                                 f"{MEL_K3_TOL})")
+        ms, launches = timed(kernel, _build, "mel_spectrogram")
+        plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
+        b_ms, b_by = stft_bound_ms(b, t, mel.shape[0] * mel.shape[1], n_fft, n_mels,
+                                   spec=False, mel=True)
+        print(f"mel_spectrogram (K4) {label} [{b},{t}] -> [{mel.shape[0]},{mel.shape[1]},"
+              f"{n_mels}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"(torch.stft + matmul, max |diff| {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}) "
+              f"launches={launches:g} max_abs_err={err:.3e} vs_k3_mel={k3_err:.3e}")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms, "max_abs_err": err, "vs_k3": k3_err}
+    return out
 
 
 def perturbed_state(cfg):
@@ -797,6 +885,177 @@ def path_b_phase(dev, _build, card: str):
     return {k: counts.get(k, 0) for k in per_step}, ms, peak
 
 
+def write_corpus(tmp: str, n_train: int = 40, n_val: int = 8, n_speakers: int = 4):
+    """Synthetic 2-4 s clips at 48 kHz for the trainer: a harmonic tone on a
+    known f0 contour (a speaker's base f0, a slow glide and vibrato) with
+    breath noise; the train and validation filelists."""
+    from vcvits_tpu_torch.utils.audio_io import write_wav
+
+    rng = np.random.default_rng(21)
+    sr = 48000
+    lists = {}
+    for split, n in (("train", n_train), ("valid", n_val)):
+        lines = []
+        for i in range(n):
+            sid = i % n_speakers
+            t = np.arange(int(rng.uniform(2.05, 4.0) * sr)) / sr
+            f0 = (110.0 + 45.0 * sid) * (1 + 0.15 * t / t[-1]) * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            wav = sum(0.25 / (h + 1) * np.sin((h + 1) * phase) for h in range(6))
+            wav = wav * (0.7 + 0.3 * np.sin(2 * np.pi * 0.5 * t)) + 0.01 * rng.standard_normal(len(t))
+            path = os.path.join(tmp, f"{split}{i}.wav")
+            write_wav(path, wav.astype(np.float32), sr, subtype="PCM_16")
+            lines.append(f"{path}|{sid}")
+        lists[split] = os.path.join(tmp, f"{split}.txt")
+        with open(lists[split], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return lists["train"], lists["valid"]
+
+
+def path_c_phase(dev, _build, card: str):
+    """The training loop at full widths: Trainer.fit, resume, stop,
+    validation and from_checkpoint."""
+    import dataclasses
+
+    from vcvits_tpu_torch.config import Config, load_config
+    from vcvits_tpu_torch.data.dataset import VoiceConversionDataset, preprocess
+    from vcvits_tpu_torch.data.device_cache import DeviceBatcher
+    from vcvits_tpu_torch.data.loader import BucketedLoader, to_device
+    from vcvits_tpu_torch.dsp.resample import resample
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
+    from vcvits_tpu_torch.train.trainer import Trainer
+    from vcvits_tpu_torch.utils.audio_io import read_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_fl, val_fl = write_corpus(tmp)
+        raw = load_config(CONFIG).to_dict()
+        raw["train"].update(fp16_run=False, steps_per_epoch=None, log_interval=1,
+                            eval_interval=3, checkpoint_interval=3)
+        raw["data"].update(training_files=train_fl, validation_files=val_fl,
+                           cache_dir=os.path.join(tmp, "cache"))
+        cfg = Config.from_dict(raw)
+        t0 = time.perf_counter()
+        for fl in (train_fl, val_fl):
+            preprocess(VoiceConversionDataset(fl, cfg.data), num_workers=8, log_every=0)
+        prep_s = time.perf_counter() - t0
+        print(f"path C: preprocess of 48 clips (resample, pYIN, 8 processes) {prep_s:.2f} s on the "
+              f"host")
+
+        # request_stop() before fit: a checkpoint at the first boundary, step 0
+        stop_dir = os.path.join(tmp, "stopped")
+        tr = Trainer(cfg, workdir=stop_dir, device=dev)
+        tr.request_stop("chip_smoke")
+        if tr.fit(max_steps=PATH_C_STEPS) != 0 or tr.ckpt.latest_step() != 0 or tr.history:
+            raise AssertionError("path C: request_stop before fit did not stop at step 0 with a "
+                                 "checkpoint")
+        del tr
+        shutil.rmtree(stop_dir)
+        torch.cuda.empty_cache()
+
+        workdir = os.path.join(tmp, "run")
+        trainer = Trainer(cfg, workdir=workdir, device=dev)
+        per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
+        per_val = {"mel_spectrogram": 4, "mrf": 72, "flow_coupling_reverse": 4}
+        n_val = PATH_C_STEPS // cfg.train.eval_interval
+        expect = {**{k: n * PATH_C_STEPS for k, n in per_step.items()},
+                  **{k: n * n_val for k, n in per_val.items()}}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        final = trainer.fit(max_steps=PATH_C_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {k: _build.LAUNCHES[k] for k in expect}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if final != PATH_C_STEPS or trainer.ckpt.latest_step() != PATH_C_STEPS:
+            raise AssertionError(f"path C: fit ended at {final}, latest checkpoint "
+                                 f"{trainer.ckpt.latest_step()}")
+        if trainer.loader_kind != "device_cache":
+            raise AssertionError(f"path C: the auto gate chose {trainer.loader_kind}, expected "
+                                 f"the device cache")
+        if counts != expect:
+            raise AssertionError(f"path C: launches {counts}, expected {expect}")
+        hist = trainer.history
+        plain = [r["run_s"] for r in hist[1:] if "validate_s" not in r and "checkpoint_s" not in r]
+        busy = sum(r["wait_s"] + r["run_s"] + r.get("validate_s", 0) + r.get("checkpoint_s", 0)
+                   for r in hist)
+        wait_share = sum(r["wait_s"] for r in hist) / busy
+        val_ms = [r["validate_s"] * 1e3 for r in hist if "validate_s" in r]
+        ckpt_ms = [r["checkpoint_s"] * 1e3 for r in hist if "checkpoint_s" in r]
+        size = os.path.getsize(os.path.join(trainer.ckpt.step_dir(PATH_C_STEPS), STATE_FILE))
+        write_s = trainer.ckpt.timings["write_s"]
+        print(f"path C: fit({PATH_C_STEPS}) at B={cfg.train.batch_size}, fp32, DeviceBatcher, "
+              f"{fit_s:.1f} s in all: {np.mean(plain) * 1e3:.1f} ms/step over the {len(plain)} "
+              f"steps after the first without validation or checkpoint (first "
+              f"{hist[0]['run_s'] * 1e3:.1f} ms), loader wait {wait_share:.4f} of the loop, "
+              f"validate {', '.join(f'{v:.1f}' for v in val_ms)} ms, checkpoint blocking "
+              f"{', '.join(f'{v:.1f}' for v in ckpt_ms)} ms, last write {write_s:.2f} s in the "
+              f"background, {size / 2 ** 30:.3f} GiB on disk, peak memory {peak:.2f} GiB on {card}; "
+              f"launches {counts}")
+
+        # epoch 0 of the streaming loader, copied to the card == the device batcher's
+        ds = VoiceConversionDataset(train_fl, cfg.data)
+        want = [to_device(b, dev) for b in BucketedLoader(ds, cfg.data,
+                                                          cfg.train.batch_size).epoch_batches(0)]
+        got = list(DeviceBatcher(ds, cfg.data, cfg.train.batch_size,
+                                 device=dev).epoch_batches(0))
+        same = len(got) == len(want) > 0 and all(
+            set(g) == set(w) and all(g[k].dtype == w[k].dtype and torch.equal(g[k], w[k])
+                                     for k in w) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError("path C: DeviceBatcher's epoch 0 differs from BucketedLoader's")
+        print(f"path C: epoch 0, {len(got)} batches of BucketedLoader copied to the card equal "
+              f"DeviceBatcher's bit for bit")
+
+        val_loader = BucketedLoader(VoiceConversionDataset(val_fl, cfg.data), cfg.data,
+                                    min(cfg.train.batch_size, 8), shuffle=False, drop_last=False)
+        scalars = trainer.validate(val_loader, PATH_C_STEPS)
+        if not (scalars and np.isfinite(scalars["val/mcd_db"]) and scalars["val/mcd_db"] >= 0
+                and 0.0 <= scalars["val/voicing_f1"] <= 1.0):
+            raise AssertionError(f"path C: validation metrics {scalars}")
+        print(f"path C: validate metrics {scalars}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # resume: every restored tensor as saved, then on to step 8
+        again = Trainer(cfg, workdir=workdir, device=dev)
+        saved = CheckpointManager(os.path.join(workdir, "checkpoints")).restore(PATH_C_STEPS)
+        if again.resume_or_init() != PATH_C_STEPS:
+            raise AssertionError("path C: the second trainer did not resume at step 6")
+        state = again.train_step.state_dict()
+        bad = [f"{side}.{k}" for side in ("gen", "disc") for k, v in saved[side].items()
+               if not torch.equal(state[side][k].cpu(), v)]
+        bad += [f"{opt}.{n}.{k}" for opt in ("g_opt", "d_opt") for n, m in saved[opt].items()
+                for k, v in m.items() if not torch.equal(state[opt][n][k].cpu(), v)]
+        n_opt = sum(len(saved[o]) for o in ("g_opt", "d_opt"))
+        if bad or set(state["g_opt"]) != set(saved["g_opt"]) or not n_opt:
+            raise AssertionError(f"path C: restored tensors differ from the saved ones: {bad[:5]}")
+        del saved, state
+        if again.fit(max_steps=PATH_C_RESUME_TO) != PATH_C_RESUME_TO:
+            raise AssertionError("path C: the resumed fit did not reach step 8")
+        print(f"path C: resumed at {PATH_C_STEPS} with every tensor as saved ({n_opt} AdamW "
+              f"states), restore {again.restore_s:.2f} s, reached {PATH_C_RESUME_TO}; "
+              f"checkpoints {again.ckpt.all_steps()}")
+        del again
+        torch.cuda.empty_cache()
+
+        vc = VoiceConverter.from_checkpoint(workdir, device=dev)
+        src = open(val_fl).readline().split("|")[0]
+        out = vc.convert(src, os.path.join(tmp, "converted.wav"), speaker_id=2)
+        true_len = len(resample(*read_wav(src), cfg.data.source_sampling_rate))
+        ls = (cfg.data.target_sampling_rate / cfg.data.hop_length) / cfg.data.source_sampling_rate
+        y_len = int((torch.tensor([true_len], dtype=torch.float32) * ls).to(torch.int32).item())
+        if len(out) != y_len * cfg.data.hop_length or not np.isfinite(out).all():
+            raise AssertionError(f"path C: from_checkpoint converted {len(out)} samples, expected "
+                                 f"{y_len * cfg.data.hop_length}")
+        print(f"path C: VoiceConverter.from_checkpoint (step {PATH_C_RESUME_TO}) converted "
+              f"{len(out)} samples, finite")
+        del vc
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -817,9 +1076,11 @@ def main() -> int:
     mrf_res = mrf_phase(rng, dev, _build)
     stft = stft_phase(rng, dev, _build)
     gate = gate_phase(rng, dev, _build)
+    mel = mel_phase(rng, dev, _build)
     paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
         dev, _build, card)}
     paths["train_step"], _, _ = path_b_phase(dev, _build, card)
+    paths["training_loop"] = path_c_phase(dev, _build, card)
     counts = {}
     for path_counts in paths.values():
         for k, v in path_counts.items():
@@ -855,6 +1116,16 @@ def main() -> int:
          "replaces": "vcvits_tpu/ops/fused_gate.py:44", "launches": counts.get("fused_gate", 0),
          "launches_backward": counts.get("fused_gate_backward", 0), **gate,
          "library_ms": None})
+    val, big = mel["validation 1 x 10 s"], mel["16 x 4 s"]
+    kernels.append(
+        {"name": "mel_spectrogram", "route": "cuda", "source": "vcvits_tpu_torch/csrc/stft_mel.cu",
+         "replaces": "vcvits_tpu/ops/stft_pallas.py:107",
+         "launches": counts.get("mel_spectrogram", 0),
+         "max_abs_err": max(val["max_abs_err"], big["max_abs_err"]), "ms": val["ms"],
+         "plain_ms": val["plain_ms"], "bound_ms": val["bound_ms"], "bound_by": val["bound_by"],
+         "library_ms": val["library_ms"], "max_abs_err_vs_k3": max(val["vs_k3"], big["vs_k3"]),
+         "ms_16x4s": big["ms"], "plain_ms_16x4s": big["plain_ms"],
+         "bound_ms_16x4s": big["bound_ms"], "library_ms_16x4s": big["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ either side of a bf16 step the input moves by 2^-8 relative, and that
 spreads through the chained convs: the error's RMS <= 2e-2 x the output's
 RMS. The STFT kernel (K3) sums 2048-term DFTs in another order than the
 plain matmul: spec max |err| <= 1e-4 x max |spec|, log-mel max |err| <=
-1e-4. The gate (K5) is elementwise in fp32: forward and gradients <= 1e-6.
+1e-4. The mel-only instance (K4) runs K3's mel sums without writing the
+spectrogram: log-mel max |err| <= 1e-4 against the plain version and
+<= 1e-6 against K3's mel at the same tile. The gate (K5) is elementwise in fp32: forward and gradients <= 1e-6.
 """
 
 import numpy as np
@@ -23,9 +25,11 @@ from vcvits_tpu_torch.ops import _build
 from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.mrf import launches_per_stage, mrf, mrf_plain
+from vcvits_tpu_torch.ops.stft_mel import MEL_ONLY, SPEC_MEL, SPEC_ONLY
 from vcvits_tpu_torch.ops.stft_mel import _launch as stft_launch
 from vcvits_tpu_torch.ops.stft_mel import (
-    spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
+    mel_spectrogram, mel_spectrogram_plain, spectrogram, spectrogram_mel, spectrogram_mel_plain,
+    spectrogram_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -140,7 +144,7 @@ def test_stft_mel_kernel_matches_plain(dev, b, t, tile):
     if tile is None:  # the wrapper, with the tile it picks
         spec, mel = spectrogram_mel(y, *args)
     else:
-        spec, mel = stft_launch(y, 2048, 512, 2048, 128, 48000, 0.0, None, 1e-5, tile)
+        spec, mel = stft_launch(y, SPEC_MEL, 2048, 512, 2048, 128, 48000, tile=tile)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["stft_mel"] - before == 1
     ref_spec, ref_mel = spectrogram_mel_plain(y, *args)
@@ -149,7 +153,7 @@ def test_stft_mel_kernel_matches_plain(dev, b, t, tile):
     assert (spec - ref_spec).abs().max().item() <= 1e-4 * ref_spec.abs().max().item()
     assert (mel - ref_mel).abs().max().item() <= 1e-4
     only = (spectrogram(y, 2048, 512, 2048) if tile is None else
-            stft_launch(y, 2048, 512, 2048, None, 0, 0.0, None, 1e-5, tile)[0])
+            stft_launch(y, SPEC_ONLY, 2048, 512, 2048, tile=tile)[0])
     assert (only - ref_spec).abs().max().item() <= 1e-4 * ref_spec.abs().max().item()
     np.testing.assert_allclose(only.cpu().numpy(), spectrogram_plain(y, 2048, 512, 2048)
                                .cpu().numpy(), atol=1e-4 * ref_spec.abs().max().item())
@@ -159,6 +163,35 @@ def test_stft_mel_kernel_refuses_grad(dev):
     y = _wave(np.random.default_rng(0), 1, 4096, dev).requires_grad_()
     with pytest.raises(ValueError, match="no backward"):
         spectrogram_mel(y, 2048, 128, 48000, 512, 2048)
+
+
+@pytest.mark.parametrize("b,t", [(1, 480000), (2, 20480), (1, 769)])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_mel_kernel_matches_plain_and_k3(dev, b, t, tile):
+    """K4 at each tile: a 10 s clip (937 frames, a ragged last tile at every
+    tile size), a short batch, and the shortest clip the reflect pad takes."""
+    y = _wave(np.random.default_rng(t + tile), b, t, dev)
+    n4, n3 = _build.LAUNCHES["mel_spectrogram"], _build.LAUNCHES["stft_mel"]
+    spec, mel = stft_launch(y, MEL_ONLY, 2048, 512, 2048, 128, 48000, tile=tile)
+    torch.cuda.synchronize()
+    assert spec is None
+    assert (_build.LAUNCHES["mel_spectrogram"] - n4, _build.LAUNCHES["stft_mel"] - n3) == (1, 0)
+    ref = mel_spectrogram_plain(y, 2048, 128, 48000, 512, 2048)
+    assert mel.shape == ref.shape == (b, 1 + (t - 512) // 512, 128)
+    assert (mel - ref).abs().max().item() <= 1e-4
+    k3_mel = stft_launch(y, SPEC_MEL, 2048, 512, 2048, 128, 48000, tile=tile)[1]
+    assert (mel - k3_mel).abs().max().item() <= 1e-6
+
+
+def test_mel_wrapper_launches_once_and_refuses_grad(dev):
+    y = _wave(np.random.default_rng(2), 1, 48000, dev)
+    before = _build.LAUNCHES["mel_spectrogram"]
+    got = mel_spectrogram(y, 2048, 128, 48000, 512, 2048)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mel_spectrogram"] - before == 1
+    assert (got - mel_spectrogram_plain(y, 2048, 128, 48000, 512, 2048)).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError, match="no backward"):
+        mel_spectrogram(y.clone().requires_grad_(), 2048, 128, 48000, 512, 2048)
 
 
 @pytest.mark.parametrize("b_kind", ["broadcast", "none"])

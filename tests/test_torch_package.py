@@ -1,10 +1,12 @@
 """Guards of the PyTorch port's package boundary and device rules.
 
 * No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
-  flax or vcvits_tpu.
-* Importing the package loads no JAX.
-* Entry points (conversion, flow-swap conversion, the train step) refuse
-  to run on the CPU unless asked to.
+  flax, optax, orbax or vcvits_tpu.
+* Importing the package, its trainer, data pipeline, metrics and CLI loads
+  no JAX.
+* Entry points (conversion, flow-swap conversion, the train step, the
+  trainer, the device batcher, the metrics, loading a checkpoint, the
+  HuBERT feature dump) refuse to run on the CPU unless asked to.
 * On CPU tensors the kernel wrappers take their plain versions and count
   no launch; K3's wrapper refuses an input that requires grad.
 * The port's config loads the repo's JSON configs exactly as JAX's does.
@@ -33,7 +35,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "vcvits_tpu_torch")
-FORBIDDEN = ("jax", "flax", "vcvits_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "vcvits_tpu")
 
 
 def _imports(path):
@@ -57,24 +59,38 @@ def test_no_jax_imports_in_port():
 
 def test_import_loads_no_jax():
     code = ("import sys, vcvits_tpu_torch, vcvits_tpu_torch.infer, "
-            "vcvits_tpu_torch.convert.from_jax, vcvits_tpu_torch.train.step; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vcvits_tpu')]; "
+            "vcvits_tpu_torch.convert.from_jax, vcvits_tpu_torch.train.step, "
+            "vcvits_tpu_torch.train.trainer, vcvits_tpu_torch.eval, vcvits_tpu_torch.cli.train, "
+            "vcvits_tpu_torch.data.filelist, vcvits_tpu_torch.data.collate, "
+            "vcvits_tpu_torch.data.dataset, vcvits_tpu_torch.data.loader, "
+            "vcvits_tpu_torch.data.device_cache, vcvits_tpu_torch.data.preload; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'orbax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_entry_points_refuse_cpu_by_default(monkeypatch):
+def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
+    from vcvits_tpu_torch.data.device_cache import DeviceBatcher
+    from vcvits_tpu_torch.data.preload import dump_hubert_features
+    from vcvits_tpu_torch.eval import evaluate_pair
     from vcvits_tpu_torch.infer import VoiceConverter
     from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
     from vcvits_tpu_torch.train.step import TrainStep
+    from vcvits_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(os.path.join(ROOT, "configs", "48k_base.json"))
+    wav = np.zeros(48000, np.float32)
     # VoiceConverter carries both convert and the flow-swap voice_conversion
     for build in (lambda: VoiceConverter(cfg), lambda: SynthesizerSVC.from_config(cfg),
-                  lambda: TrainStep(cfg)):
+                  lambda: TrainStep(cfg), lambda: Trainer(cfg, workdir=str(tmp_path)),
+                  lambda: DeviceBatcher([], cfg.data, 2),
+                  lambda: evaluate_pair(wav, wav, 48000),
+                  lambda: VoiceConverter.from_checkpoint(str(tmp_path)),
+                  lambda: dump_hubert_features([], cfg, torch.nn.Linear(1, 1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 

@@ -6,8 +6,11 @@ parameters with every leaf a numpy array (for example
 module of the same subtree: `SynthesizerSVC` for the whole generator, or
 any submodule for a subtree. `disc_params_from_jax(d_params)` does the same
 for the discriminators' {"mpd": ..., "msd": ...} tree, for the port's
-`Discriminators` (models/discriminators.py). It imports no JAX. The rules,
-by leaf name:
+`Discriminators` (models/discriminators.py). `train_state_from_jax(state,
+cfg)` turns a whole JAX `GANTrainState` (numpy leaves) into the port's
+checkpoint content (`TrainStep.state_dict()`), Adam moments included, so a
+run started in JAX resumes in the port. It imports no JAX and no optax.
+The rules, by leaf name:
 
 * flax `Dense.kernel` [in, out]       -> `weight` [out, in]   (kernel.T)
 * conv `kernel` / `v` [k, in, out]    -> `weight` / `v` [out, in, k]
@@ -21,7 +24,7 @@ by leaf name:
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -99,3 +102,66 @@ def disc_params_from_jax(d_params: Mapping) -> Dict[str, torch.Tensor]:
     if set(d_params) != {"mpd", "msd"}:
         raise ValueError(f"expected the keys mpd and msd, got {sorted(d_params)}")
     return _convert_tree(d_params)
+
+
+def _adam_state(opt_state: Any) -> Optional[Dict[str, Any]]:
+    """{"count", "mu", "nu"} of the ScaleByAdamState inside an optax state.
+    Namedtuples are walked by their field names, tuples in order (optax's
+    chain) and mappings by key (an Orbax step restored as numpy), so no
+    optax import is needed."""
+    if hasattr(opt_state, "_fields"):
+        node = {f: getattr(opt_state, f) for f in opt_state._fields}
+    elif isinstance(opt_state, Mapping):
+        node = dict(opt_state)
+    elif isinstance(opt_state, (tuple, list)):
+        node = dict(enumerate(opt_state))
+    else:
+        return None
+    if {"count", "mu", "nu"} <= set(node):
+        return node
+    for child in node.values():
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _arrays_only(tree: Mapping) -> Dict:
+    """The tree without optax's masked leaves (MaskedNode, no shape): the
+    frozen HuBERT has no moments."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            sub = _arrays_only(v)
+            if sub:
+                out[k] = sub
+        elif hasattr(v, "shape"):
+            out[k] = v
+    return out
+
+
+def _moments(opt_state: Any, convert) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax Adam (count, mu, nu) -> AdamW's per-parameter state by port
+    name: exp_avg, exp_avg_sq and step (float32, as torch keeps it)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    mu, nu = convert(_arrays_only(adam["mu"])), convert(_arrays_only(adam["nu"]))
+    count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    return {name: {"step": count.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            for name in mu}
+
+
+def train_state_from_jax(state: Any, cfg: Optional[Config] = None) -> Dict[str, Any]:
+    """A JAX GANTrainState with numpy leaves (`jax.tree.map(np.asarray,
+    state)`, or an Orbax step restored as numpy) -> the port's checkpoint
+    content: {"step", "gen", "disc", "g_opt", "d_opt"}, the layout of
+    `TrainStep.state_dict()`. optax's mu / nu / count become AdamW's
+    exp_avg / exp_avg_sq / step; HuBERT, masked out of optax, has none.
+    With `cfg`, the generator is checked against that configuration."""
+    get = (lambda k: state[k]) if isinstance(state, Mapping) else (lambda k: getattr(state, k))
+    return {"step": int(np.asarray(get("step"))),
+            "gen": params_from_jax(get("g_params"), cfg),
+            "disc": disc_params_from_jax(get("d_params")),
+            "g_opt": _moments(get("g_opt_state"), _convert_tree),
+            "d_opt": _moments(get("d_opt_state"), _convert_tree)}

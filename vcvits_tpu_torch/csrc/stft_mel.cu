@@ -1,36 +1,43 @@
 // STFT magnitude and log-mel of a batch of waveforms in one pass, for Hopper
-// (sm_90a).
+// (sm_90a): kernels K3 and K4.
 //
-// Replaces the Pallas TPU kernel vcvits_tpu/ops/stft_pallas.py:
-// spectrogram_mel_fused (pallas_call at stft_pallas.py:196). For each row b
-// of y [B, T] and each frame f of the (n_fft - hop)/2 reflect-padded signal,
-// at hop stride, center=False:
+// K3 replaces the Pallas TPU kernel vcvits_tpu/ops/stft_pallas.py:
+// spectrogram_mel_fused (pallas_call at stft_pallas.py:196); K4 replaces
+// mel_spectrogram_fused in the same file (pallas_call at :107). For each
+// row b of y [B, T] and each frame f of the (n_fft - hop)/2 reflect-padded
+// signal, at hop stride, center=False:
 //   re[k] = sum_n x[f*hop + n] * cos_b[n, k],  im[k] = sum_n x[f*hop + n] * sin_b[n, k]
 //   spec[b, f, k] = sqrt(re^2 + im^2 + 1e-6)                     k < n_fft/2 + 1
 //   mel[b, f, m]  = log(max(sum_k spec[b, f, k] * fbank[k, m], clip))
 // with the Hann window folded into the fp32 bases (built in float64 by the
 // wrapper, as _dft_basis does). Every sum is fp32 FMA. Three instances of
-// one kernel: spec + mel (the train step's frozen targets), spec only
-// (voice_conversion's posterior input) and mel only (the trainer's
-// validation mel, still to be wired).
+// one kernel: spec + mel (K3, the train step's frozen targets), spec only
+// (K3, voice_conversion's posterior input) and mel only (K4, the trainer's
+// validation mel and the MCD metric's MFCC), which writes no spectrogram.
 //
-// Bound: 4*n_fft*F + 2*F*n_mels FLOPs per frame (8.7 MFLOP at n_fft 2048,
-// F 1025, 128 mels), against 8 KB of output and 2 KB of new input per frame,
-// so arithmetic bounds it: >= 0.58 ms for 16 x 3 s of 48 kHz audio at the
-// fp32 CUDA-core rate. A direct DFT does about 75x the operations of an FFT;
-// this kernel is the simple form that is right, not the fast one.
+// Bound, on the work the function needs: per frame a real FFT (about
+// 2.5*n_fft*log2(n_fft) = 56 kFLOP at n_fft 2048), the magnitude, and for
+// the mel the 2*F*n_mels product (262 kFLOP at F 1025, 128 mels), against
+// 2 KB of new input, 4 KB of spec and 0.5 KB of mel output per frame. At
+// 3.35 TB/s and the 67 TFLOP/s fp32 CUDA-core rate that is >= 0.029 ms for
+// the 16 x 4 s train targets (operations), >= 0.0017 ms for one 10 s spec
+// (bytes) and >= 0.0045 ms for K4 on one 10 s clip (937 frames,
+// operations). This kernel does a direct DFT instead, 4*n_fft*F = 8.4 MFLOP
+// per frame, about 150x the FFT's operations: the simple form that is
+// right, not the fast one.
 //
 // Design: a block owns FT consecutive frames of one row. It stages the
 // (FT-1)*hop + n_fft samples those frames span once in shared memory,
 // reflecting at both ends as it reads, so the overlapped [FT, n_fft] frame
-// copy the TPU kernel builds in HBM never exists. Then it walks the bins in
+// copy the TPU kernels build in HBM never exists. Then it walks the bins in
 // tiles of NTHREADS: each thread owns one bin and keeps FT (re, im) pairs in
 // registers while it streams its column of the bases from L2 (each block
 // reads the 16.8 MB of bases once) and reads the samples four at a time as
 // broadcast 16-byte loads. The tile's magnitudes are stored to `spec`
-// (coalesced over bins) and, for the mel, staged in shared memory, where
-// each thread folds them into its own FT*n_mels/NTHREADS mel sums; the log
-// is taken after the last tile.
+// (coalesced over bins; not in the mel-only instance) and, for the mel,
+// staged in shared memory, where each thread folds them into its own
+// FT*n_mels/NTHREADS mel sums; the log is taken after the last tile, and a
+// ragged last frame tile writes only its NF % FT valid frames.
 
 #include <cuda_runtime.h>
 

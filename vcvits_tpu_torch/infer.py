@@ -11,17 +11,21 @@ Counterpart of vcvits_tpu/infer.py:VoiceConverter.
   and write 48 kHz PCM_24.
 
 Inputs are padded to an alignment-unit boundary, as in JAX.
+`VoiceConverter.from_checkpoint` loads the generator of a training run
+(train/trainer.py) from its workdir.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vcvits_tpu_torch.config import Config
+from vcvits_tpu_torch.config import Config, load_config
 from vcvits_tpu_torch.convert.from_jax import params_from_jax
 from vcvits_tpu_torch.data.collate import alignment_unit
 from vcvits_tpu_torch.dsp.pitch import coarse_f0, estimate_pitch
@@ -31,6 +35,9 @@ from vcvits_tpu_torch.models.hubert import HubertConfig
 from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
 from vcvits_tpu_torch.ops.stft_mel import spectrogram
 from vcvits_tpu_torch.utils.audio_io import read_wav, write_wav
+from vcvits_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 class VoiceConverter:
@@ -56,6 +63,28 @@ class VoiceConverter:
         """From the JAX package's generator parameters as numpy arrays."""
         return cls(cfg, params_from_jax(g_params, cfg), dtype=dtype, device=device,
                    hubert_cfg=hubert_cfg)
+
+    @classmethod
+    def from_checkpoint(cls, workdir: str, cfg: Optional[Config] = None,
+                        step: Optional[int] = None, dtype=torch.float32, device="cuda",
+                        hubert_cfg: Optional[HubertConfig] = None) -> "VoiceConverter":
+        """The generator of a training run's checkpoint at `step` (the
+        latest by default) under `workdir`/checkpoints. With cfg None, the
+        run's `workdir`/config.json is read (the default Config where it is
+        missing)."""
+        from vcvits_tpu_torch.train.checkpoint import CheckpointManager
+
+        device = resolve_device(device)
+        mgr = CheckpointManager(os.path.join(workdir, "checkpoints"))
+        step = step if step is not None else mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {mgr.directory}")
+        state = mgr.restore(step)
+        logger.info("loaded checkpoint step %d from %s", step, mgr.directory)
+        if cfg is None:
+            cfg_path = os.path.join(workdir, "config.json")
+            cfg = load_config(cfg_path) if os.path.exists(cfg_path) else Config()
+        return cls(cfg, state["gen"], dtype=dtype, device=device, hubert_cfg=hubert_cfg)
 
     def prepare_source(self, path: str, pitch_shift: int = 0
                        ) -> Tuple[np.ndarray, int, np.ndarray]:

@@ -110,12 +110,16 @@ class TrainStep:
     Builds on `device` ("cuda" by default; raises when no GPU is present
     unless device="cpu"). Weights come from the seeded initialisers, or
     from `g_state` / `d_state` (for example params_from_jax /
-    disc_params_from_jax of the JAX package's trees)."""
+    disc_params_from_jax of the JAX package's trees). The learning rate
+    decays once per epoch of `steps_per_epoch` steps; the config's
+    `steps_per_epoch` overrides it, and 1000 is used where neither is set
+    (`train/state.resolve_steps_per_epoch`)."""
 
     def __init__(self, cfg: Config, device="cuda",
                  hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
                  g_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 d_state: Optional[Mapping[str, torch.Tensor]] = None):
+                 d_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 steps_per_epoch: Optional[int] = None):
         device = resolve_device(device)
         if cfg.train.remat_policy != "none":
             raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
@@ -140,10 +144,42 @@ class TrainStep:
         self.d_params = list(self.disc.parameters())
         self.g_opt = make_optimizer(self.g_params, cfg)
         self.d_opt = make_optimizer(self.d_params, cfg)
-        self.schedule = exponential_epoch_schedule(cfg)
+        self.set_steps_per_epoch(steps_per_epoch)
         self.step = 0
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def set_steps_per_epoch(self, steps_per_epoch: Optional[int]) -> None:
+        """The schedule's epoch length: `steps_per_epoch` where the config
+        sets none (the Trainer passes its loader's length)."""
+        self.schedule = exponential_epoch_schedule(self.cfg, steps_per_epoch)
+
+    def state_dict(self) -> Dict[str, object]:
+        """The train state, as a checkpoint holds it: {"step", "gen" and
+        "disc" (state dicts), "g_opt" and "d_opt" (AdamW's per-parameter
+        state, keyed by parameter name)}. Tensors are the live ones."""
+        return {"step": self.step, "gen": self.gen.state_dict(), "disc": self.disc.state_dict(),
+                "g_opt": self._opt_state(self.gen, self.g_opt),
+                "d_opt": self._opt_state(self.disc, self.d_opt)}
+
+    def load_state_dict(self, state: Mapping[str, object]) -> None:
+        """Load a `state_dict()`-shaped state, tensors copied to the step's
+        device; a parameter missing from an optimizer's state starts fresh."""
+        self.step = int(state["step"])
+        self.gen.load_state_dict(state["gen"])
+        self.disc.load_state_dict(state["disc"])
+        for module, opt, key in ((self.gen, self.g_opt, "g_opt"), (self.disc, self.d_opt, "d_opt")):
+            opt.state.clear()
+            named = dict(module.named_parameters())
+            for name, moments in state[key].items():
+                p = named[name]
+                opt.state[p] = {k: v.detach().to("cpu" if k == "step" else p.device, copy=True)
+                                for k, v in moments.items()}
+
+    @staticmethod
+    def _opt_state(module: torch.nn.Module, opt: torch.optim.Optimizer) -> Dict[str, Dict]:
+        return {name: dict(opt.state[p]) for name, p in module.named_parameters()
+                if p in opt.state and opt.state[p]}
 
     def _features(self, batch: Batch):
         """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen."""
