@@ -19,9 +19,13 @@
    * stft_mel (K3): the train step's 16 x 4 s targets (spec + log-mel) and
      one padded 10 s voice_conversion source (spec only); spec max |err|
      <= 1e-4 x max |spec|, log-mel max |err| <= 1e-4; also the time of
-     torch.stft + one fbank matmul (library_ms, a yardstick only). The
-     bound of K3 and K4 counts the work of the function, a real FFT per
-     frame, not the kernels' direct DFT (stft_bound_ms).
+     torch.stft + one fbank matmul (library_ms, a yardstick only), the
+     ratio kernel_ms / library_ms, the bound's share of the kernel's time,
+     and the kernel's device time from torch.profiler (device_ms, without
+     the host's cost per call), at the tile the wrapper picks and at each
+     frame tile. The bound of K3 and K4
+     counts the work of the function, a real FFT per frame and the mel
+     sums over the fbank's non-zeros (stft_bound_ms).
    * fused_gate (K5): forward and backward on [16, 375, 256], against the
      plain op and its autograd, max |err| <= 1e-6 (grad_b, a sum over 375
      frames, <= 375e-6).
@@ -29,7 +33,7 @@
      validation shape, one 10 s clip at 48 kHz (937 frames), and 16 x 4 s;
      log-mel max |err| <= 1e-4 against its plain version and <= 1e-6
      against K3's mel on the same input; also torch.stft + one fbank
-     matmul (library_ms).
+     matmul (library_ms), the ratios and the tiles as for K3.
 4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
    with the plain path on the CPU, same weights and noise, and must agree
@@ -148,20 +152,52 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def stft_bound_ms(b: int, t: int, rows: int, n_fft: int, n_mels: int, spec: bool, mel: bool):
+def stft_bound_ms(b: int, t: int, rows: int, n_fft: int, n_mels: int, nnz: int, spec: bool,
+                  mel: bool):
     """The least time for |STFT| (spec) and/or log-mel (mel) of y [b, t]
-    over `rows` frames, counted on the work the function needs, not on
-    K3/K4's direct DFT: per frame a real FFT (2.5 n_fft log2 n_fft
-    operations), the window, the magnitude (4 per bin), and for the mel
-    the 2 F n_mels product and the log; bytes: y once, each output once,
-    the fbank once."""
+    over `rows` frames, counted on the work the function needs: per frame
+    a real FFT (2.5 n_fft log2 n_fft operations), the window, the magnitude
+    (4 per bin), and for the mel the product with the fbank over its `nnz`
+    non-zeros (2 each: the filterbank is sparse, and a sparse product counts
+    what its inputs need) and the log; bytes: y once, each output once, the
+    fbank's non-zeros once."""
     n_freq = n_fft // 2 + 1
     per_frame = 2.5 * n_fft * float(np.log2(n_fft)) + n_fft + 4 * n_freq
     nbytes = b * t + (rows * n_freq if spec else 0)
     if mel:
-        per_frame += 2 * n_freq * n_mels + n_mels
-        nbytes += n_freq * n_mels + rows * n_mels
+        per_frame += 2 * nnz + n_mels
+        nbytes += nnz + rows * n_mels
     return bound_ms(rows * per_frame, 4 * nbytes, FP32_FLOPS)
+
+
+def kernel_device_ms(fn, name: str, reps: int = 5) -> float:
+    """Device time per call of fn of the kernels whose name holds `name`,
+    from torch.profiler (device events only, `reps` calls after a warm-up):
+    the kernel alone, without the host's cost per call that CUDA events
+    around a short call take in. NaN where the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(spans) / reps / 1e3 if spans else float("nan")
+
+
+def stft_report(label: str, ms: float, device_ms: float, library_ms: float, b_ms: float,
+                tile_ms) -> str:
+    """For a K3 or K4 phase: the ratio to the library call, the bound's share
+    of the kernel's time (CUDA events around the call, and the kernel's
+    device time from the profiler) and the device time at each frame tile."""
+    tiles = ", ".join(f"{tile}: {t_ms:.4f}" for tile, t_ms in tile_ms.items())
+    return (f"{label}: kernel_ms / library_ms = {ms / library_ms:.3f}, bound_ms / kernel_ms = "
+            f"{b_ms / ms:.4f}; device_ms={device_ms:.4f} (bound share {b_ms / device_ms:.4f}); "
+            f"device_ms by frame tile {{{tiles}}}")
 
 
 def info_line() -> str:
@@ -442,10 +478,12 @@ def stft_phase(rng, dev, _build):
 
     from vcvits_tpu_torch.dsp.spectrogram import hann_window, mel_filterbank
     from vcvits_tpu_torch.ops.stft_mel import (
-        spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
+        _TILES, SPEC_MEL, SPEC_ONLY, _launch, spectrogram, spectrogram_mel,
+        spectrogram_mel_plain, spectrogram_plain)
 
     n_fft, hop, n_mels, sr = 2048, 512, 128, 48000
     fbank = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels).T.copy(), device=dev)
+    nnz = int((fbank != 0).sum().item())
     window = torch.as_tensor(hann_window(n_fft), device=dev)
     n_freq = n_fft // 2 + 1
     out = {}
@@ -480,13 +518,19 @@ def stft_phase(rng, dev, _build):
                                  f"{STFT_TOL * top:.3e}), log-mel max |err| {mel_err:.3e}")
         ms, launches = timed(kernel, _build, "stft_mel")
         plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
-        b_ms, b_by = stft_bound_ms(b, t, spec.shape[0] * spec.shape[1], n_fft, n_mels,
+        mode = SPEC_MEL if with_mel else SPEC_ONLY
+        device_ms = kernel_device_ms(kernel, "stft_mel_kernel")
+        tile_ms = {tile: kernel_device_ms(lambda: _launch(y, mode, n_fft, hop, n_fft, n_mels, sr,
+                                                          tile=tile), "stft_mel_kernel")
+                   for tile in _TILES}
+        b_ms, b_by = stft_bound_ms(b, t, spec.shape[0] * spec.shape[1], n_fft, n_mels, nnz,
                                    spec=True, mel=with_mel)
         print(f"stft_mel {label} [{b},{t}] -> [{spec.shape[0]},{spec.shape[1]},{n_freq}]"
               f"{' + mel' if with_mel else ''}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (torch.stft + matmul, max |diff| {lib_err:.3e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) launches={launches:g} max_abs_err={err:.3e} "
               f"(max |spec| {top:.3e}) mel_max_abs_err={mel_err:.3e}")
+        print(stft_report(f"stft_mel {label}", ms, device_ms, library_ms, b_ms, tile_ms))
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library_ms, "max_abs_err": max(err, mel_err)}
     return out
@@ -555,10 +599,11 @@ def mel_phase(rng, dev, _build):
 
     from vcvits_tpu_torch.dsp.spectrogram import hann_window, mel_filterbank
     from vcvits_tpu_torch.ops.stft_mel import (
-        mel_spectrogram, mel_spectrogram_plain, spectrogram_mel)
+        _TILES, MEL_ONLY, _launch, mel_spectrogram, mel_spectrogram_plain, spectrogram_mel)
 
     n_fft, hop, n_mels, sr = 2048, 512, 128, 48000
     fbank = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels).T.copy(), device=dev)
+    nnz = int((fbank != 0).sum().item())
     window = torch.as_tensor(hann_window(n_fft), device=dev)
     out = {}
     for label, b, t in (("validation 1 x 10 s", 1, 10 * 48000), ("16 x 4 s", 16, 4 * 48000)):
@@ -589,12 +634,18 @@ def mel_phase(rng, dev, _build):
                                  f"{MEL_K3_TOL})")
         ms, launches = timed(kernel, _build, "mel_spectrogram")
         plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
-        b_ms, b_by = stft_bound_ms(b, t, mel.shape[0] * mel.shape[1], n_fft, n_mels,
+        device_ms = kernel_device_ms(kernel, "stft_mel_kernel")
+        tile_ms = {tile: kernel_device_ms(lambda: _launch(y, MEL_ONLY, n_fft, hop, n_fft, n_mels,
+                                                          sr, tile=tile), "stft_mel_kernel")
+                   for tile in _TILES}
+        b_ms, b_by = stft_bound_ms(b, t, mel.shape[0] * mel.shape[1], n_fft, n_mels, nnz,
                                    spec=False, mel=True)
         print(f"mel_spectrogram (K4) {label} [{b},{t}] -> [{mel.shape[0]},{mel.shape[1]},"
               f"{n_mels}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"(torch.stft + matmul, max |diff| {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}) "
               f"launches={launches:g} max_abs_err={err:.3e} vs_k3_mel={k3_err:.3e}")
+        print(stft_report(f"mel_spectrogram (K4) {label}", ms, device_ms, library_ms, b_ms,
+                          tile_ms))
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library_ms, "max_abs_err": err, "vs_k3": k3_err}
     return out

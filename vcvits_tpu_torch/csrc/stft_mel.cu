@@ -5,211 +5,334 @@
 // spectrogram_mel_fused (pallas_call at stft_pallas.py:196); K4 replaces
 // mel_spectrogram_fused in the same file (pallas_call at :107). For each
 // row b of y [B, T] and each frame f of the (n_fft - hop)/2 reflect-padded
-// signal, at hop stride, center=False:
-//   re[k] = sum_n x[f*hop + n] * cos_b[n, k],  im[k] = sum_n x[f*hop + n] * sin_b[n, k]
-//   spec[b, f, k] = sqrt(re^2 + im^2 + 1e-6)                     k < n_fft/2 + 1
-//   mel[b, f, m]  = log(max(sum_k spec[b, f, k] * fbank[k, m], clip))
-// with the Hann window folded into the fp32 bases (built in float64 by the
-// wrapper, as _dft_basis does). Every sum is fp32 FMA. Three instances of
-// one kernel: spec + mel (K3, the train step's frozen targets), spec only
-// (K3, voice_conversion's posterior input) and mel only (K4, the trainer's
-// validation mel and the MCD metric's MFCC), which writes no spectrogram.
+// signal, at hop stride, center=False, with w the periodic Hann window of
+// win_length zero-padded to n_fft:
+//   X[k] = sum_n x[f*hop + n] w[n] exp(-2 pi i n k / n_fft)        k < F = n_fft/2 + 1
+//   spec[b, f, k] = sqrt(re(X[k])^2 + im(X[k])^2 + 1e-6)
+//   mel[b, f, m]  = log(max(sum_k spec[b, f, k] * fbank[m, k], clip))
+// in fp32. Three instances of one kernel: spec + mel (K3, the train step's
+// frozen targets), spec only (K3, voice_conversion's posterior input) and
+// mel only (K4, the trainer's validation mel and the MCD metric's MFCC),
+// which writes no spectrogram.
 //
 // Bound, on the work the function needs: per frame a real FFT (about
-// 2.5*n_fft*log2(n_fft) = 56 kFLOP at n_fft 2048), the magnitude, and for
-// the mel the 2*F*n_mels product (262 kFLOP at F 1025, 128 mels), against
-// 2 KB of new input, 4 KB of spec and 0.5 KB of mel output per frame. At
-// 3.35 TB/s and the 67 TFLOP/s fp32 CUDA-core rate that is >= 0.029 ms for
-// the 16 x 4 s train targets (operations), >= 0.0017 ms for one 10 s spec
-// (bytes) and >= 0.0045 ms for K4 on one 10 s clip (937 frames,
-// operations). This kernel does a direct DFT instead, 4*n_fft*F = 8.4 MFLOP
-// per frame, about 150x the FFT's operations: the simple form that is
-// right, not the fast one.
+// 2.5*n_fft*log2(n_fft) = 56 kFLOP at n_fft 2048), the window and the
+// magnitude, and for the mel a sum over each filter's non-zero band (2014
+// of the 128 x 1025 fbank entries at 48 kHz), against 2 KB of new input,
+// 4 KB of spec and 0.5 KB of mel output per frame. At 3.35 TB/s and the
+// 67 TFLOP/s fp32 CUDA-core rate that is >= 0.012 ms for the 16 x 4 s train
+// targets (bytes: y, the 24.6 MB spec, the mel), >= 0.0017 ms for one 10 s
+// spec (bytes) and >= 0.0009 ms for K4 on one 10 s clip (operations).
+// The spec store and the shared-memory passes of the FFT are what this
+// kernel is held by; there is no matrix product left for tensor cores
+// (fp32 parity would need 3xTF32, and the band-limited mel is 4 kFLOP a
+// frame).
 //
-// Design: a block owns FT consecutive frames of one row. It stages the
-// (FT-1)*hop + n_fft samples those frames span once in shared memory,
-// reflecting at both ends as it reads, so the overlapped [FT, n_fft] frame
-// copy the TPU kernels build in HBM never exists. Then it walks the bins in
-// tiles of NTHREADS: each thread owns one bin and keeps FT (re, im) pairs in
-// registers while it streams its column of the bases from L2 (each block
-// reads the 16.8 MB of bases once) and reads the samples four at a time as
-// broadcast 16-byte loads. The tile's magnitudes are stored to `spec`
-// (coalesced over bins; not in the mel-only instance) and, for the mel,
-// staged in shared memory, where each thread folds them into its own
-// FT*n_mels/NTHREADS mel sums; the log is taken after the last tile, and a
-// ragged last frame tile writes only its NF % FT valid frames.
+// Design: a real FFT through an M = n_fft/2 point complex FFT. A block owns
+// FT consecutive frames of one row. It stages the (FT-1)*hop + n_fft samples
+// they span once in shared memory, reflecting at both ends as it reads, so
+// the overlapped [FT, n_fft] frame copy never exists in device memory. Each
+// frame, packed as z[n] = x[2n] w[2n] + i x[2n+1] w[2n+1], is transformed by
+// a Stockham FFT in shared memory: radix-4 stages (one radix-2 stage where
+// log2(M) is odd), each thread loading its butterfly's points into
+// registers, applying the twiddles, and storing to the other of two buffers
+// (re and im in separate arrays, one float of padding every 32, so that the
+// strided loads and the first stage's stride-4 stores hit distinct banks).
+// The first stage packs and windows its points as it loads them from the
+// staged samples, so z is never stored. The split step recovers the F bins:
+//   X[k] = (Z[k] + Z*[M-k])/2 - i W^k (Z[k] - Z*[M-k])/2,  W = exp(-2 pi i / n_fft).
+// Magnitudes go to `spec` (one contiguous run of FT*F floats per block,
+// coalesced; not in the mel-only instance) and, for the mel, to shared
+// memory, where one thread per (frame, mel) sums the filter's band in
+// ascending bins (the dense product's order, without its zeros) and takes
+// the log. The twiddles come from one float64-built table (ops/stft_mel.py:
+// fft_twiddles): W^k for the split step, then each stage's factors laid out
+// so that neighbouring threads read neighbouring entries; it is read
+// through the read-only cache, where one copy per SM serves every block
+// (a single W^k table read at the stages' strides would put up to 16
+// threads of a warp on one bank). A ragged last frame tile writes only its
+// valid frames.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NTHREADS = 256;
+constexpr int MAX_MELS = 256;
 
 enum Mode { SPEC_MEL = 0, SPEC_ONLY = 1, MEL_ONLY = 2 };
 
+// index of complex point a in a padded re or im array
+__device__ __forceinline__ int padded(int a) { return a + (a >> 5); }
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2 (&v)[2]) {
+  const float2 a = v[0], b = v[1];
+  v[0] = make_float2(a.x + b.x, a.y + b.y);
+  v[1] = make_float2(a.x - b.x, a.y - b.y);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
+  const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 t3 = make_float2(v[1].y - v[3].y, v[3].x - v[1].x);  // -i (v1 - v3)
+  v[0] = make_float2(t0.x + t2.x, t0.y + t2.y);
+  v[2] = make_float2(t0.x - t2.x, t0.y - t2.y);
+  v[1] = make_float2(t1.x + t3.x, t1.y + t3.y);
+  v[3] = make_float2(t1.x - t3.x, t1.y - t3.y);
+}
+
+// One Stockham stage of radix R over the FT frames of src into dst: p points
+// already combined, per = M / R butterflies a frame. Butterfly i of a frame
+// reads points i + r*per, multiplies point r by exp(-2 pi i r k / (p R)),
+// k = i mod p (tw[(r-1)*p + k]), and writes its outputs to (i-k)*R + k + r*p.
+// A frame's re lies at f*fs, its im at f*fs + ld.
+template <int R>
+__device__ __forceinline__ void fft_stage(const float* __restrict__ src, float* __restrict__ dst,
+                                          const float2* __restrict__ tw, int p, int log_per,
+                                          int units, int fs, int ld) {
+  const int per = 1 << log_per;
+  for (int u = threadIdx.x; u < units; u += NTHREADS) {
+    const int f = u >> log_per, i = u & (per - 1);
+    const int k = i & (p - 1);
+    const float* s = src + f * fs;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = padded(i + r * per);
+      v[r] = make_float2(s[a], s[ld + a]);
+    }
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(tw + (r - 1) * p + k));
+    dft<R>(v);
+    float* d = dst + f * fs;
+    const int j = (i - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = padded(j + r * p);
+      d[a] = v[r].x;
+      d[ld + a] = v[r].y;
+    }
+  }
+}
+
+// The first radix-4 stage (p = 1, no twiddles), reading its points straight
+// from the staged samples: point n of frame f is packed and windowed as it
+// is loaded, z[n] = x[f*hop + 2n] w[2n] + i x[f*hop + 2n+1] w[2n+1].
+__device__ __forceinline__ void first_stage(const float* __restrict__ sig,
+                                            const float2* __restrict__ window,
+                                            float* __restrict__ dst, int hop, int log_per,
+                                            int units, int fs, int ld) {
+  const int per = 1 << log_per;
+  for (int u = threadIdx.x; u < units; u += NTHREADS) {
+    const int f = u >> log_per, i = u & (per - 1);
+    const float* x = sig + f * hop;
+    float2 v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = i + r * per;
+      const float2 s = *reinterpret_cast<const float2*>(x + 2 * n);
+      const float2 w = __ldg(window + n);
+      v[r] = make_float2(s.x * w.x, s.y * w.y);
+    }
+    dft<4>(v);
+    float* d = dst + f * fs;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int a = padded(4 * i + r);
+      d[a] = v[r].x;
+      d[ld + a] = v[r].y;
+    }
+  }
+}
+
 template <int FT, int MODE>
 __global__ void __launch_bounds__(NTHREADS)
-stft_mel_kernel(const float* __restrict__ y, const float* __restrict__ cosb,
-                const float* __restrict__ sinb, const float* __restrict__ fbank,
-                float* __restrict__ spec, float* __restrict__ mel, int T, int NF, int n_fft,
-                int hop, int n_mels, float clip) {
+stft_mel_kernel(const float* __restrict__ y, const float* __restrict__ window,
+                const float2* __restrict__ twiddle, const int* __restrict__ bands,
+                const float* __restrict__ weights, float* __restrict__ spec,
+                float* __restrict__ mel, int T, int NF, int log_m, int hop, int n_mels,
+                float clip) {
   constexpr bool kSpec = MODE != MEL_ONLY;
   constexpr bool kMel = MODE != SPEC_ONLY;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int F = n_fft / 2 + 1;
-  const int pad = (n_fft - hop) / 2;
-  const int span = (FT - 1) * hop + n_fft;
-  float* sig = smem;                                  // [span]
-  float* tile = sig + ((span + 3) & ~3);              // [FT][NTHREADS], mel only
-  float* melacc = tile + FT * NTHREADS;               // [FT * n_mels], mel only
+  __shared__ int band[3 * MAX_MELS];  // first bin, length, weight offset of each mel
+  const int M = 1 << log_m, n_fft = 2 * M, F = M + 1;
+  const int ld = M + (M >> 5), fs = 2 * ld;
+  float* buf_a = reinterpret_cast<float*>(smem4);  // [FT][re, im][ld]
+  float* buf_b = buf_a + FT * fs;                  // the same; the staged samples first
 
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * FT;
   const int tid = threadIdx.x;
-  const float* row = y + (size_t)b * T;
-  const int padded_len = T + 2 * pad;
+  const int valid = min(FT, NF - f0);
 
   // stage the reflect-padded samples of frames f0 .. f0+FT-1
-  for (int j = tid; j < span; j += NTHREADS) {
-    const int p = f0 * hop + j;
-    float v = 0.f;
-    if (p < padded_len) {
-      int i = p - pad;
-      if (i < 0) i = -i;
-      if (i >= T) i = 2 * (T - 1) - i;
-      v = row[i];
+  {
+    const float* row = y + (size_t)b * T;
+    const int pad = (n_fft - hop) / 2;
+    const int padded_len = T + 2 * pad;
+    const int span = (FT - 1) * hop + n_fft;
+    for (int j = tid; j < span; j += NTHREADS) {
+      const int p = f0 * hop + j;
+      float v = 0.f;
+      if (p < padded_len) {
+        int i = p - pad;
+        if (i < 0) i = -i;
+        if (i >= T) i = 2 * (T - 1) - i;
+        v = row[i];
+      }
+      buf_b[j] = v;
     }
-    sig[j] = v;
   }
   if (kMel) {
-    for (int o = tid; o < FT * n_mels; o += NTHREADS) melacc[o] = 0.f;
+    for (int o = tid; o < 3 * n_mels; o += NTHREADS) band[o] = bands[o];
   }
   __syncthreads();
 
-  for (int k0 = 0; k0 < F; k0 += NTHREADS) {
-    const int k = k0 + tid;
-    float re[FT], im[FT];
-#pragma unroll
-    for (int f = 0; f < FT; ++f) {
-      re[f] = 0.f;
-      im[f] = 0.f;
-    }
-    if (k < F) {
-      for (int n = 0; n < n_fft; n += 4) {
-        const float c0 = __ldg(cosb + (size_t)n * F + k);
-        const float c1 = __ldg(cosb + (size_t)(n + 1) * F + k);
-        const float c2 = __ldg(cosb + (size_t)(n + 2) * F + k);
-        const float c3 = __ldg(cosb + (size_t)(n + 3) * F + k);
-        const float s0 = __ldg(sinb + (size_t)n * F + k);
-        const float s1 = __ldg(sinb + (size_t)(n + 1) * F + k);
-        const float s2 = __ldg(sinb + (size_t)(n + 2) * F + k);
-        const float s3 = __ldg(sinb + (size_t)(n + 3) * F + k);
-#pragma unroll
-        for (int f = 0; f < FT; ++f) {
-          const float4 x = *reinterpret_cast<const float4*>(sig + f * hop + n);
-          re[f] = fmaf(x.x, c0, re[f]);
-          im[f] = fmaf(x.x, s0, im[f]);
-          re[f] = fmaf(x.y, c1, re[f]);
-          im[f] = fmaf(x.y, s1, im[f]);
-          re[f] = fmaf(x.z, c2, re[f]);
-          im[f] = fmaf(x.z, s2, im[f]);
-          re[f] = fmaf(x.w, c3, re[f]);
-          im[f] = fmaf(x.w, s3, im[f]);
-        }
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < FT; ++f) {
-      const float mag = k < F ? sqrtf(re[f] * re[f] + im[f] * im[f] + 1e-6f) : 0.f;
-      if (kSpec && k < F && f0 + f < NF) spec[((size_t)b * NF + f0 + f) * F + k] = mag;
-      if (kMel) tile[f * NTHREADS + tid] = mag;
-    }
-    if (kMel) {
-      __syncthreads();
-      const int nk = min(NTHREADS, F - k0);
-      for (int o = tid; o < FT * n_mels; o += NTHREADS) {
-        const int f = o / n_mels, m = o - f * n_mels;
-        const float* t = tile + f * NTHREADS;
-        const float* fb = fbank + (size_t)k0 * n_mels + m;
-        float acc = 0.f;
-        for (int kk = 0; kk < nk; ++kk) acc = fmaf(t[kk], __ldg(fb + (size_t)kk * n_mels), acc);
-        melacc[o] += acc;
-      }
-      __syncthreads();
+  // the M-point complex FFT: the first stage from the samples into buf_a,
+  // then back and forth (the table's first stage entries, p = 1, are ones)
+  first_stage(buf_b, reinterpret_cast<const float2*>(window), buf_a, hop, log_m - 2,
+              FT << (log_m - 2), fs, ld);
+  __syncthreads();
+  float* src = buf_a;
+  float* dst = buf_b;
+  const float2* tw = twiddle + M + 3;
+  int p = 4, lm = log_m - 2;
+  for (; lm >= 2; lm -= 2) {
+    fft_stage<4>(src, dst, tw, p, log_m - 2, FT << (log_m - 2), fs, ld);
+    __syncthreads();
+    tw += 3 * p;
+    p *= 4;
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  if (lm == 1) {
+    fft_stage<2>(src, dst, tw, p, log_m - 1, FT << (log_m - 1), fs, ld);
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // split step, magnitude; the block's spec rows are one contiguous run.
+  // Bin k < M per thread; the thread of bin 0 also writes bin M, X[M] =
+  // re Z[0] - im Z[0] (the general formula at k = M, with W^M = -1).
+  float* mags = dst;  // [FT][F], mel only
+  float* spec_out = kSpec ? spec + ((size_t)b * NF + f0) * F : nullptr;
+  for (int u = tid; u < (FT << log_m); u += NTHREADS) {
+    const int f = u >> log_m, k = u & (M - 1);
+    const float* z = src + f * fs;
+    const int a = padded(k), c = padded((M - k) & (M - 1));
+    const float2 zk = make_float2(z[a], z[ld + a]);
+    const float2 zc = make_float2(z[c], -z[ld + c]);  // conj(Z[M-k])
+    const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
+    const float2 d = make_float2(0.5f * (zk.x - zc.x), 0.5f * (zk.y - zc.y));
+    const float2 wd = cmul(__ldg(twiddle + k), d);
+    const float re = e.x + wd.y, im = e.y - wd.x;  // e - i (W d)
+    const float mag = sqrtf(re * re + im * im + 1e-6f);
+    const int o = f * F + k;
+    if (kSpec && f < valid) spec_out[o] = mag;
+    if (kMel) mags[o] = mag;
+    if (k == 0) {
+      const float nyq = zk.x - zk.y;
+      const float mag_m = sqrtf(nyq * nyq + 1e-6f);
+      if (kSpec && f < valid) spec_out[o + M] = mag_m;
+      if (kMel) mags[o + M] = mag_m;
     }
   }
 
   if (kMel) {
-    for (int o = tid; o < FT * n_mels; o += NTHREADS) {
-      const int f = o / n_mels;
-      if (f0 + f < NF) mel[((size_t)b * NF + f0) * n_mels + o] = logf(fmaxf(melacc[o], clip));
+    __syncthreads();
+    float* mel_out = mel + ((size_t)b * NF + f0) * n_mels;
+    for (int u = tid; u < FT * n_mels; u += NTHREADS) {
+      const int f = u / n_mels, m = u - f * n_mels;
+      const float* s = mags + f * F + band[m];
+      const float* wt = weights + band[2 * n_mels + m];
+      const int len = band[n_mels + m];
+      float acc = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < len; ++j) acc = fmaf(s[j], __ldg(wt + j), acc);
+      if (f < valid) mel_out[u] = logf(fmaxf(acc, clip));
     }
   }
 }
 
-size_t smem_bytes(int ft, int mode, int n_fft, int hop, int n_mels) {
-  const int span = (ft - 1) * hop + n_fft;
-  size_t floats = (span + 3) & ~3;
-  if (mode != SPEC_ONLY) floats += (size_t)ft * NTHREADS + (size_t)ft * n_mels;
-  return floats * sizeof(float);
-}
+size_t smem_bytes(int ft, int m) { return (size_t)2 * ft * 2 * (m + (m >> 5)) * sizeof(float); }
 
 template <int FT, int MODE>
-cudaError_t launch(const float* y, const float* cosb, const float* sinb, const float* fbank,
-                   float* spec, float* mel, int B, int T, int NF, int n_fft, int hop,
-                   int n_mels, float clip, cudaStream_t stream) {
-  const size_t smem = smem_bytes(FT, MODE, n_fft, hop, n_mels);
+cudaError_t launch(const float* y, const float* window, const float2* twiddle, const int* bands,
+                   const float* weights, float* spec, float* mel, int B, int T, int NF,
+                   int log_m, int hop, int n_mels, float clip, cudaStream_t stream) {
+  const size_t smem = smem_bytes(FT, 1 << log_m);
   cudaError_t err = cudaFuncSetAttribute(stft_mel_kernel<FT, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((NF + FT - 1) / FT, B);
-  stft_mel_kernel<FT, MODE><<<grid, NTHREADS, smem, stream>>>(y, cosb, sinb, fbank, spec, mel,
-                                                              T, NF, n_fft, hop, n_mels, clip);
+  stft_mel_kernel<FT, MODE><<<grid, NTHREADS, smem, stream>>>(
+      y, window, twiddle, bands, weights, spec, mel, T, NF, log_m, hop, n_mels, clip);
   return cudaGetLastError();
 }
 
 template <int FT>
-cudaError_t by_mode(int mode, const float* y, const float* cosb, const float* sinb,
-                    const float* fbank, float* spec, float* mel, int B, int T, int NF, int n_fft,
-                    int hop, int n_mels, float clip, cudaStream_t s) {
+cudaError_t by_mode(int mode, const float* y, const float* window, const float2* twiddle,
+                    const int* bands, const float* weights, float* spec, float* mel, int B,
+                    int T, int NF, int log_m, int hop, int n_mels, float clip, cudaStream_t s) {
   switch (mode) {
-    case SPEC_MEL: return launch<FT, SPEC_MEL>(y, cosb, sinb, fbank, spec, mel, B, T, NF, n_fft, hop, n_mels, clip, s);
-    case SPEC_ONLY: return launch<FT, SPEC_ONLY>(y, cosb, sinb, fbank, spec, mel, B, T, NF, n_fft, hop, n_mels, clip, s);
-    case MEL_ONLY: return launch<FT, MEL_ONLY>(y, cosb, sinb, fbank, spec, mel, B, T, NF, n_fft, hop, n_mels, clip, s);
+    case SPEC_MEL: return launch<FT, SPEC_MEL>(y, window, twiddle, bands, weights, spec, mel, B, T, NF, log_m, hop, n_mels, clip, s);
+    case SPEC_ONLY: return launch<FT, SPEC_ONLY>(y, window, twiddle, bands, weights, spec, mel, B, T, NF, log_m, hop, n_mels, clip, s);
+    case MEL_ONLY: return launch<FT, MEL_ONLY>(y, window, twiddle, bands, weights, spec, mel, B, T, NF, log_m, hop, n_mels, clip, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Device pointers, all contiguous
-// float32:
-//   y [B, T]; cosb, sinb [n_fft, n_fft/2+1]; fbank [n_fft/2+1, n_mels]
-//   spec [B, NF, n_fft/2+1] (unused with mode 2), mel [B, NF, n_mels]
-//   (unused with mode 1), NF = 1 + (T + 2*((n_fft-hop)/2) - n_fft) / hop.
-// mode: 0 spec + mel, 1 spec only, 2 mel only. ft (frames per block): 8, 16
-// or 32. Needs T > (n_fft-hop)/2 (one reflection), hop % 4 == 0 and
-// n_fft % 4 == 0. Returns the cudaError_t of the launch.
-extern "C" int stft_mel(const void* y, const void* cosb, const void* sinb, const void* fbank,
-                        void* spec, void* mel, int B, int T, int n_fft, int hop, int n_mels,
-                        int ft, int mode, float clip, void* stream) {
+// Plain C entry point (bound with ctypes). Device pointers, all contiguous:
+//   y [B, T] float32; window [n_fft] float32 (Hann, zero-padded to n_fft);
+//   twiddle [n_fft, 2] float32 (ops/stft_mel.py:fft_twiddles);
+//   bands [3, n_mels] int32 and weights float32 (ops/stft_mel.py:mel_bands;
+//   unused with mode 1); spec [B, NF, n_fft/2+1] float32 (unused with
+//   mode 2); mel [B, NF, n_mels] float32 (unused with mode 1);
+//   NF = 1 + (T + 2*((n_fft-hop)/2) - n_fft) / hop.
+// mode: 0 spec + mel, 1 spec only, 2 mel only. ft (frames per block): 1 or
+// 2. Needs n_fft a power of two from 64 to 4096, hop a multiple of 4 and
+// <= n_fft, T > (n_fft-hop)/2 (one reflection) and, with a mel, 1 <= n_mels
+// <= 256. Returns the cudaError_t of the launch.
+extern "C" int stft_mel(const void* y, const void* window, const void* twiddle,
+                        const void* bands, const void* weights, void* spec, void* mel, int B,
+                        int T, int n_fft, int hop, int n_mels, int ft, int mode, float clip,
+                        void* stream) {
+  if (n_fft < 64 || n_fft > 4096) return (int)cudaErrorInvalidValue;
+  int log_m = 0;
+  while ((2 << log_m) < n_fft) ++log_m;
   const int pad = (n_fft - hop) / 2;
-  if (B < 1 || hop < 4 || hop % 4 || n_fft % 4 || pad < 0 || T <= pad || n_mels < 1)
+  if (B < 1 || (2 << log_m) != n_fft || hop < 4 || hop % 4 || hop > n_fft || T <= pad)
     return (int)cudaErrorInvalidValue;
+  if (mode != SPEC_ONLY && (n_mels < 1 || n_mels > MAX_MELS)) return (int)cudaErrorInvalidValue;
   const int NF = 1 + (T + 2 * pad - n_fft) / hop;
   if (NF < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yy = static_cast<const float*>(y);
-  const float* cb = static_cast<const float*>(cosb);
-  const float* sb = static_cast<const float*>(sinb);
-  const float* fb = static_cast<const float*>(fbank);
+  const float* wn = static_cast<const float*>(window);
+  const float2* tw = static_cast<const float2*>(twiddle);
+  const int* bd = static_cast<const int*>(bands);
+  const float* wt = static_cast<const float*>(weights);
   float* sp = static_cast<float*>(spec);
   float* ml = static_cast<float*>(mel);
   switch (ft) {
-    case 8: return (int)by_mode<8>(mode, yy, cb, sb, fb, sp, ml, B, T, NF, n_fft, hop, n_mels, clip, s);
-    case 16: return (int)by_mode<16>(mode, yy, cb, sb, fb, sp, ml, B, T, NF, n_fft, hop, n_mels, clip, s);
-    case 32: return (int)by_mode<32>(mode, yy, cb, sb, fb, sp, ml, B, T, NF, n_fft, hop, n_mels, clip, s);
+    case 1: return (int)by_mode<1>(mode, yy, wn, tw, bd, wt, sp, ml, B, T, NF, log_m, hop, n_mels, clip, s);
+    case 2: return (int)by_mode<2>(mode, yy, wn, tw, bd, wt, sp, ml, B, T, NF, log_m, hop, n_mels, clip, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
