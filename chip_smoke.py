@@ -5,17 +5,24 @@
 
 1. Prints the card's name and power limit, and the torch/CUDA versions.
 2. Builds the CUDA kernels from vcvits_tpu_torch/csrc/ (one nvcc per
-   source, all at once) and prints ptxas's register/spill report.
+   source, all at once) and prints ptxas's register/spill report; counts
+   the HMMA/HGMMA (tensor-core) instructions in the mrf library's SASS
+   (cuobjdump -sass) and fails if there are none.
 3. Kernel phases at the main path's shapes, each kernel against its plain
    PyTorch version on the card, TF32 off:
    * flow_coupling_reverse (K2): 4 couplings on [1, 930, 128], hidden 128,
      random non-zero weights; float32, max |err| <= 1e-4 x output RMS.
    * mrf (K1): the four decoder stages of a 10 s utterance, [1, 7440, 256]
      ... [1, 476160, 32], random weights; float32 (max |err| <= 1e-4 x
-     output RMS) and bf16 weights (error RMS <= 2e-2 x output RMS).
+     output RMS) and bf16 weights (error RMS <= 2e-2 x output RMS), 9
+     launches a stage; per stage the tile `plan` chose, the kernel's device
+     time from torch.profiler beside the CUDA-event time, and the bound's
+     share of each.
    Each prints its time, the plain version's time and the least time the
    card could take (the larger of bytes / 3.35 TB/s and operations / peak:
-   67 TFLOP/s float32 CUDA cores, 989 TFLOP/s bf16 tensor cores).
+   67 TFLOP/s float32 CUDA cores, 989 TFLOP/s bf16 tensor cores; K1's
+   fp32 bound is the lesser of the CUDA-core figure and 3xTF32's, three
+   TF32 products per multiply-add at 495 TFLOP/s, and both are printed).
    * stft_mel (K3): the train step's 16 x 4 s targets (spec + log-mel) and
      one padded 10 s voice_conversion source (spec only); spec max |err|
      <= 1e-4 x max |spec|, log-mel max |err| <= 1e-4; also the time of
@@ -48,7 +55,7 @@
    10 s 48 kHz sources with distinct (source, target) speakers through
    VoiceConverter.voice_conversion in float32 and bf16. Per request: output
    length = y_mask.sum() * hop, finite, and launches K3 1, K5 32, K2 4,
-   K1 72. ms and real-time factor.
+   K1 36. ms and real-time factor.
 6. Path B (TrainStep), full widths: 5 steps at batch 16 of paired synthetic
    2-4 s clips (x_pitch from the known f0), segment 16384, float32. Every
    loss finite; after step 1 every trainable parameter changed and HuBERT
@@ -65,7 +72,7 @@
    Trainer.fit(max_steps=6) with log_interval 1 and validation and
    checkpoints every 3 steps. The default device_data_cache "auto" must
    pick DeviceBatcher; launches around the fit are per step K3 1, K5 64
-   forward and 32 backward, per validation K4 4, K1 72, K2 4. A second
+   forward and 32 backward, per validation K4 4, K1 36, K2 4. A second
    Trainer on the workdir resumes at 6 with every tensor as saved and
    reaches 8; request_stop() before a fit saves step 0; epoch 0 of
    BucketedLoader copied to the card equals DeviceBatcher's bit for bit;
@@ -97,6 +104,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FLOW_TOL = 1e-4
 MRF_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_ATOL = 1e-3
@@ -217,6 +225,15 @@ def build_phase(_build) -> None:
                      for line in log.splitlines() if "spill stores" in line)
         print(f"ptxas {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"spill stores {spills} bytes")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path("mrf"))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout.splitlines()
+    hmma = sum(" HMMA." in line for line in sass)
+    hgmma = sum(" HGMMA." in line for line in sass)
+    print(f"SASS mrf: {hmma} HMMA, {hgmma} HGMMA instructions (tensor cores)")
+    if hmma + hgmma == 0:
+        raise AssertionError("mrf: the library's SASS has no HMMA or HGMMA instruction")
 
 
 def flow_phase(rng, dev, _build):
@@ -270,14 +287,32 @@ def flow_phase(rng, dev, _build):
             "max_abs_err": err}
 
 
+def mrf_bound_ms(t: int, c: int, n_w: int, wdt):
+    """K1's least time for one stage [1, t, c]: bytes of x, the output and
+    the weights once; operations 2 * n_w * c^2 * t. bf16 at the tensor
+    cores' bf16 rate; fp32 the lesser of the CUDA cores' fp32 FMAs and
+    3xTF32 (three TF32 products per multiply-add) on the tensor cores.
+    Returns (bound_ms, bound_by, cuda_core_ms, tf32x3_ms)."""
+    isz = 4 if wdt == torch.float32 else 2
+    nbytes = 2 * t * c * isz + (n_w * c * c + 2 * 9 * c) * isz
+    flops = 2 * n_w * c * c * t
+    if wdt == torch.bfloat16:
+        return (*bound_ms(flops, nbytes, BF16_FLOPS), None, None)
+    cores, cores_by = bound_ms(flops, nbytes, FP32_FLOPS)
+    tc, tc_by = bound_ms(3 * flops, nbytes, TF32_FLOPS)
+    return (cores, cores_by, cores, tc) if cores <= tc else (tc, tc_by, cores, tc)
+
+
 def mrf_phase(rng, dev, _build):
-    from vcvits_tpu_torch.ops.mrf import mrf, mrf_plain
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage, mrf, mrf_plain, plan
 
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     n_w = 2 * sum(k * len(d) for k, d in zip(ks, ds))  # 126 taps of C x C
     out = {}
     for wdt in (torch.float32, torch.bfloat16):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+        label = str(wdt)[6:]
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0,
+               "bound_ms_cuda_cores": 0.0, "bound_ms_3xtf32": 0.0}
         for t, c in STAGE_SHAPES:
             xdt = torch.float32 if wdt == torch.float32 else torch.bfloat16
             x = torch.tensor(rng.standard_normal((1, t, c)), dtype=torch.float32,
@@ -297,22 +332,39 @@ def mrf_phase(rng, dev, _build):
             if not (rel <= MRF_TOL[wdt] and torch.isfinite(got.float()).all()):
                 raise AssertionError(f"mrf C={c} T={t} {wdt}: max |err| {err:.3e}, "
                                      f"relative error {rel:.3e} > {MRF_TOL[wdt]}")
-            ms, launches = timed(lambda: mrf(x, blocks, ks, ds), _build, "mrf")
+            kernel = lambda: mrf(x, blocks, ks, ds)  # noqa: E731
+            ms, launches = timed(kernel, _build, "mrf")
+            if launches != launches_per_stage(ds):
+                raise AssertionError(f"mrf C={c}: {launches} launches a stage, expected "
+                                     f"{launches_per_stage(ds)}")
+            device_ms = kernel_device_ms(kernel, "mrf_pair_kernel")
             plain_ms = cuda_ms(lambda: mrf_plain(x, blocks, ks, ds))
-            isz_w, isz_x = (4, 4) if wdt == torch.float32 else (2, 2)
-            nbytes = 2 * t * c * isz_x + (n_w * c * c + 2 * 9 * c) * isz_w
-            b_ms, b_by = bound_ms(2 * n_w * c * c * t, nbytes,
-                                  FP32_FLOPS if wdt == torch.float32 else BF16_FLOPS)
-            print(f"mrf [1,{t},{c}] {str(wdt)[6:]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) launches={launches:g} "
-                  f"max_abs_err={err:.3e} rel={rel:.3e}")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms)):
+            b_ms, b_by, cores_ms, tc_ms = mrf_bound_ms(t, c, n_w, wdt)
+            tiles = {k: plan(c, k, max(d), wdt) for k, d in zip(ks, ds)}
+            p = tiles[ks[-1]]
+            bound_note = (f"bound_ms={b_ms:.4f} ({b_by})" if cores_ms is None else
+                          f"bound_ms={b_ms:.4f} ({b_by}; CUDA-core fp32 {cores_ms:.4f}, "
+                          f"3xTF32 {tc_ms:.4f})")
+            print(f"mrf [1,{t},{c}] {label}: kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} {bound_note} bound share {b_ms / ms:.4f} "
+                  f"(device {b_ms / device_ms:.4f}) launches={launches:g} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e}; tile {p.rows} conv1 rows, "
+                  f"{'/'.join(str(tiles[k].out_rows) for k in ks)} output rows for k "
+                  f"{'/'.join(map(str, ks))}, {p.threads} threads, {p.smem} B shared memory "
+                  f"at k {ks[-1]} d {max(ds[-1])}")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                           ("device_ms", device_ms), ("bound_ms_cuda_cores", cores_ms or 0.0),
+                           ("bound_ms_3xtf32", tc_ms or 0.0)):
                 tot[key] += v
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["bound_by"] = b_by
             del x, blocks, got, ref
-        print(f"mrf all 4 stages {str(wdt)[6:]}: kernel_ms={tot['ms']:.4f} "
-              f"plain_ms={tot['plain_ms']:.4f} bound_ms={tot['bound_ms']:.4f}")
+        extra = ("" if wdt == torch.bfloat16 else
+                 f" (CUDA-core fp32 {tot['bound_ms_cuda_cores']:.4f}, 3xTF32 "
+                 f"{tot['bound_ms_3xtf32']:.4f})")
+        print(f"mrf all 4 stages {label}: kernel_ms={tot['ms']:.4f} "
+              f"device_ms={tot['device_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f}{extra}")
         out[wdt] = tot
     return out
 
@@ -974,6 +1026,7 @@ def path_c_phase(dev, _build, card: str):
     from vcvits_tpu_torch.data.loader import BucketedLoader, to_device
     from vcvits_tpu_torch.dsp.resample import resample
     from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage
     from vcvits_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
     from vcvits_tpu_torch.train.trainer import Trainer
     from vcvits_tpu_torch.utils.audio_io import read_wav
@@ -1007,7 +1060,9 @@ def path_c_phase(dev, _build, card: str):
         workdir = os.path.join(tmp, "run")
         trainer = Trainer(cfg, workdir=workdir, device=dev)
         per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
-        per_val = {"mel_spectrogram": 4, "mrf": 72, "flow_coupling_reverse": 4}
+        m = cfg.model
+        per_val = {"mel_spectrogram": 4, "flow_coupling_reverse": 4,
+                   "mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes)}
         n_val = PATH_C_STEPS // cfg.train.eval_interval
         expect = {**{k: n * PATH_C_STEPS for k, n in per_step.items()},
                   **{k: n * n_val for k, n in per_val.items()}}
@@ -1144,7 +1199,9 @@ def main() -> int:
          "replaces": "vcvits_tpu/ops/mrf_pallas.py:134", "launches": counts.get("mrf", 0),
          "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
          "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
-         "ms_bf16": b16["ms"], "plain_ms_bf16": b16["plain_ms"],
+         "device_ms": f32["device_ms"], "bound_ms_cuda_cores": f32["bound_ms_cuda_cores"],
+         "bound_ms_3xtf32": f32["bound_ms_3xtf32"], "ms_bf16": b16["ms"],
+         "device_ms_bf16": b16["device_ms"], "plain_ms_bf16": b16["plain_ms"],
          "bound_ms_bf16": b16["bound_ms"], "max_abs_err_bf16": b16["max_abs_err"]},
         {"name": "flow_coupling_reverse", "route": "cuda",
          "source": "vcvits_tpu_torch/csrc/flow_coupling.cu",

@@ -5,8 +5,10 @@ imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: float32 runs with TF32 off, so kernel and plain version differ
-only in summation order: max |err| <= 1e-4 x the output's RMS. bf16 weights
+Tolerances: the plain version runs with TF32 off and K1 with 3xTF32 (about
+2^-21 relative per product), so in float32 they differ by rounding at the
+level of the summation order: max |err| <= 1e-4 x the output's RMS, and
+K1 also <= 1e-5, which one TF32 product per multiply-add cannot meet. bf16 weights
 round the conv inputs to bf16 on both sides; where the two sums land on
 either side of a bf16 step the input moves by 2^-8 relative, and that
 spreads through the chained convs: the error's RMS <= 2e-2 x the output's
@@ -31,7 +33,7 @@ from vcvits_tpu_torch.dsp.spectrogram import _padded_window, mel_filterbank
 from vcvits_tpu_torch.ops import _build
 from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
-from vcvits_tpu_torch.ops.mrf import launches_per_stage, mrf, mrf_plain
+from vcvits_tpu_torch.ops.mrf import kernel_plan, launches_per_stage, mrf, mrf_plain, plan
 from vcvits_tpu_torch.ops.stft_mel import MEL_ONLY, SPEC_MEL, SPEC_ONLY
 from vcvits_tpu_torch.ops.stft_mel import _launch as stft_launch
 from vcvits_tpu_torch.ops.stft_mel import (
@@ -71,15 +73,26 @@ def _rel_err(got, ref, bf16=False):
     return err.item() / max(ref.pow(2).mean().sqrt().item(), 1e-6)
 
 
-@pytest.mark.parametrize("c,t,batch", [(32, 1000, 1), (64, 333, 2), (256, 97, 1)])
-@pytest.mark.parametrize("wdtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+# (C, T, batch): every stage width; T below the 30-row halo of k 11 at d 5,
+# ragged T, and T one row past a tile (54 output rows at C 256 and k 11, 118
+# at C 128, 502 at C 32), where a bias leaking into u's padding would show
+MRF_CASES = [(32, 1000, 1), (64, 333, 2), (256, 97, 1), (128, 20, 1), (256, 55, 1),
+             (128, 119, 2), (32, 503, 1), (64, 1001, 1)]
+
+
+@pytest.mark.parametrize("c,t,batch", MRF_CASES)
+@pytest.mark.parametrize("wdtype,tol", [(torch.float32, 1e-4), (torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
 def test_mrf_kernel_matches_plain(dev, c, t, batch, wdtype, tol):
+    """fp32 is held to 1e-5 x RMS as well, which one TF32 product per
+    multiply-add (10-bit mantissa, about 1e-3 relative) cannot meet: the
+    kernel runs 3xTF32."""
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     x, blocks = _mrf_inputs(np.random.default_rng(c + t), c, t, ks, ds, wdtype, dev, batch)
     before = _build.LAUNCHES["mrf"]
     got = mrf(x, blocks, ks, ds)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["mrf"] - before == launches_per_stage(ds)
+    assert _build.LAUNCHES["mrf"] - before == launches_per_stage(ds) == 9
     ref = mrf_plain(x, blocks, ks, ds)
     assert got.shape == ref.shape and got.dtype == x.dtype
     assert _rel_err(got, ref, bf16=wdtype == torch.bfloat16) < tol
@@ -94,11 +107,44 @@ def test_mrf_kernel_bf16_activations(dev):
     assert _rel_err(got, mrf_plain(x, blocks, ks, ds), bf16=True) < 2e-2
 
 
-def test_mrf_kernel_rejects_unsupported_width(dev):
-    ks, ds = (3,), ((1,),)
-    x, blocks = _mrf_inputs(np.random.default_rng(4), 48, 64, ks, ds, torch.float32, dev)
+@pytest.mark.parametrize("c", [96, 160])
+def test_mrf_kernel_generic_block(dev, c):
+    """The (5, 2) block and a one-dilation block at batch 2, fp32, at widths
+    that are not powers of two (6 and 5 warps a block)."""
+    ks, ds = (3, 5), ((1, 2), (1,))
+    x, blocks = _mrf_inputs(np.random.default_rng(c), c, 300, ks, ds, torch.float32, dev, 2)
+    before = _build.LAUNCHES["mrf"]
+    got = mrf(x, blocks, ks, ds)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mrf"] - before == launches_per_stage(ds) == 3
+    assert _rel_err(got, mrf_plain(x, blocks, ks, ds)) < 1e-5
+
+
+@pytest.mark.parametrize("c,k,d", [(48, 3, 1), (512, 3, 1), (64, 4, 1), (256, 11, 60)])
+def test_mrf_kernel_rejects_unsupported_width(dev, c, k, d):
+    """C not a multiple of 32, above 256, an even kernel, or a tile whose
+    shared memory passes 227 KB: ValueError before any launch, no fallback."""
+    ks, ds = (k,), ((d,),)
+    x, blocks = _mrf_inputs(np.random.default_rng(4), c, 64, ks, ds, torch.float32, dev)
+    before = _build.LAUNCHES["mrf"]
     with pytest.raises(ValueError):
         mrf(x, blocks, ks, ds)
+    assert _build.LAUNCHES["mrf"] == before
+
+
+def test_mrf_plan_matches_kernel(dev):
+    """ops/mrf.py:plan and the library's mrf_plan agree on every stage shape
+    and on the refusals."""
+    for c in range(32, 257, 32):
+        for k, d in ((3, 1), (7, 3), (11, 5), (5, 2), (11, 40)):
+            for wdt in (torch.float32, torch.bfloat16):
+                try:
+                    p = plan(c, k, d, wdt)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        kernel_plan(c, k, d, wdt)
+                    continue
+                assert (p.threads, p.rows, p.smem) == kernel_plan(c, k, d, wdt)
 
 
 def _flow_inputs(rng, batch, t, c, hidden, n_layers, dev, with_cond):

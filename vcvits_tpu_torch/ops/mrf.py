@@ -13,15 +13,17 @@ are rounded to the weights' type and every sum is fp32, as in the Pallas
 kernel.
 
 `mrf` is the wrapper: a CPU tensor goes to `mrf_plain`, the same function
-in PyTorch ops; a CUDA tensor launches csrc/mrf.cu (2 launches per
-(block, dilation)) or raises. The kernel's design and bound are in the
-source's header note.
+in PyTorch ops; a CUDA tensor launches csrc/mrf.cu (one launch per
+(block, dilation): both convs, with u kept on chip) or raises. `plan`
+gives each launch's shape and refuses the sizes the kernel does not take.
+The kernel's design and bound are in the source's header note.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +32,53 @@ from vcvits_tpu_torch.ops import _build
 
 Block = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-EPI_LRELU, EPI_RES, EPI_ADD, EPI_MEAN = 0, 1, 2, 3
+EPI_RES, EPI_ADD, EPI_MEAN = 0, 1, 2
+
+# csrc/mrf.cu's tiling: a warp owns 64 rows x 32 channels, C / 32 warps span
+# the channels and 8 / (C / 32) the rows. Weights stream through a ring of
+# [KS input channels x (C + 8)] tiles, 128-byte aligned after the input
+# tile: bf16 3 deep, KS 64 (32 at C = 32); fp32 2 deep, KS 32.
+MAX_SMEM = 232448  # bytes of shared memory a block can have on an H100
+
+
+class Plan(NamedTuple):
+    """One (block, dilation) launch: `threads` a block; `rows` conv1 rows a
+    block, of which the first `out_rows` conv2 rows are kept; `halo` input
+    rows staged on each side of them; `span` input rows staged; `smem`
+    dynamic shared-memory bytes."""
+    threads: int
+    rows: int
+    out_rows: int
+    halo: int
+    span: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(c: int, k: int, d: int, wdtype: torch.dtype) -> Plan:
+    """The launch shape of csrc/mrf.cu:plan for C channels, kernel k,
+    dilation d and the weights' type; ValueError where the kernel does
+    not take the size."""
+    if wdtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mrf: weights must be float32 or bfloat16, got {wdtype}")
+    if c % 32 or not 32 <= c <= 256:
+        raise ValueError(f"mrf: the CUDA kernel needs C % 32 == 0 and 32 <= C <= 256, got C={c}")
+    if k < 1 or k % 2 == 0 or d < 1:
+        raise ValueError(f"mrf: the CUDA kernel needs an odd kernel and dilation >= 1, "
+                         f"got k={k}, d={d}")
+    wn = c // 32
+    wm = 8 // wn
+    rows = 64 * wm
+    if k - 1 >= rows:
+        raise ValueError(f"mrf: kernel {k} is too wide for {rows}-row tiles at C={c}")
+    span = rows + (k - 1) * d  # = out_rows + 2 * halo
+    esz, x_stride, stages, ks = ((4, c + 4, 2, 32) if wdtype == torch.float32 else
+                                 (2, c + 8, 3, 64 if c % 64 == 0 else 32))
+    smem = -(-span * x_stride * esz // 128) * 128 + stages * ks * (c + 8) * esz
+    if smem > MAX_SMEM:
+        raise ValueError(f"mrf: C={c}, k={k}, d={d} needs {smem} bytes of shared memory a "
+                         f"block, above {MAX_SMEM}")
+    return Plan(32 * wn * wm, rows, rows - (k - 1), (k - 1) // 2 * (d + 1), span, smem)
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -64,8 +112,6 @@ def _check(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mrf: x must be float32 or bfloat16, got {x.dtype}")
     c = x.shape[2]
-    if c % 32 != 0:
-        raise ValueError(f"mrf: the CUDA kernel needs C % 32 == 0, got C={c}")
     if not (len(blocks) == len(kernel_sizes) == len(dilations)):
         raise ValueError("mrf: blocks, kernel_sizes and dilations differ in length")
     wdt = blocks[0][0].dtype
@@ -79,26 +125,31 @@ def _check(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int]
                     or not t.is_contiguous():
                 raise ValueError(f"mrf: {name} must be a contiguous {wdt} {shape} tensor "
                                  f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        for d in dils:
+            plan(c, k, d, wdt)
     return wdt
-
-
-def _launch(lib, src, w, b, res, out, k, d, pre_lrelu, epi, inv_n, bf16, stream) -> None:
-    bsz, t, c = src.shape
-    err = lib.mrf_conv(src.data_ptr(), w.data_ptr(), b.data_ptr(),
-                       res.data_ptr() if res is not None else None, out.data_ptr(),
-                       bsz, t, c, k, d, pre_lrelu, epi, inv_n, bf16, stream)
-    _build.check(err, "mrf_conv")
-    _build.LAUNCHES["mrf"] += 1
 
 
 def _lib():
     lib = _build.load("mrf")
     if not getattr(lib, "_vc_typed", False):
-        lib.mrf_conv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        lib.mrf_pair.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.mrf_conv.restype = ctypes.c_int
+        lib.mrf_pair.restype = ctypes.c_int
+        lib.mrf_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.mrf_plan.restype = ctypes.c_int
         lib._vc_typed = True
     return lib
+
+
+def kernel_plan(c: int, k: int, d: int, wdtype: torch.dtype) -> Tuple[int, int, int]:
+    """(threads, rows, smem) as the built library's mrf_plan gives them, for
+    holding `plan` to the C side on the card; ValueError where it refuses."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = _lib().mrf_plan(c, k, d, int(wdtype == torch.bfloat16), *(ctypes.byref(v) for v in out))
+    if err:
+        raise ValueError(f"mrf_plan refuses C={c}, k={k}, d={d}, {wdtype}")
+    return tuple(v.value for v in out)
 
 
 def mrf(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int],
@@ -111,25 +162,31 @@ def mrf(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int],
     wdt = _check(x, blocks, kernel_sizes, dilations)
     lib = _lib()
     bf16 = int(wdt == torch.bfloat16)
+    bsz, t_len, c = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         xf = x.float().contiguous()
-        u = torch.empty_like(xf)
-        h = torch.empty_like(xf)
+        hs = (torch.empty_like(xf), torch.empty_like(xf))  # ping-pong: a pair reads its halo
         total = torch.zeros_like(xf)
         inv_n = 1.0 / len(blocks)
         for j, ((w1, b1, w2, b2), k, dils) in enumerate(zip(blocks, kernel_sizes, dilations)):
+            src = xf
             for t, d in enumerate(dils):
-                src = xf if t == 0 else h
-                _launch(lib, src, w1[t], b1[t], None, u, k, d, 1, EPI_LRELU, 1.0, bf16, stream)
                 if t < len(dils) - 1:
-                    out, epi = h, EPI_RES
+                    out, epi = hs[t % 2], EPI_RES
                 else:
                     out, epi = total, (EPI_MEAN if j == len(blocks) - 1 else EPI_ADD)
-                _launch(lib, u, w2[t], b2[t], src, out, k, 1, 0, epi, inv_n, bf16, stream)
+                err = lib.mrf_pair(src.data_ptr(), w1[t].data_ptr(), b1[t].data_ptr(),
+                                   w2[t].data_ptr(), b2[t].data_ptr(), out.data_ptr(), bsz,
+                                   t_len, c, k, d, plan(c, k, d, wdt).rows, epi, inv_n, bf16,
+                                   stream)
+                _build.check(err, "mrf_pair")
+                _build.LAUNCHES["mrf"] += 1
+                src = out
         return total.to(x.dtype)
 
 
 def launches_per_stage(dilations: Sequence[Sequence[int]]) -> int:
-    """Kernel launches `mrf` makes for one stage on a CUDA tensor."""
-    return 2 * sum(len(d) for d in dilations)
+    """Kernel launches `mrf` makes for one stage on a CUDA tensor: one per
+    (block, dilation)."""
+    return sum(len(d) for d in dilations)
