@@ -6,12 +6,18 @@
 1. Prints the card's name and power limit, and the torch/CUDA versions.
 2. Builds the CUDA kernels from vcvits_tpu_torch/csrc/ (one nvcc per
    source, all at once) and prints ptxas's register/spill report; counts
-   the HMMA/HGMMA (tensor-core) instructions in the mrf library's SASS
-   (cuobjdump -sass) and fails if there are none.
+   the HMMA/HGMMA (tensor-core) instructions in the mrf and flow_coupling
+   libraries' SASS (cuobjdump -sass) and fails if either has none.
 3. Kernel phases at the main path's shapes, each kernel against its plain
    PyTorch version on the card, TF32 off:
-   * flow_coupling_reverse (K2): 4 couplings on [1, 930, 128], hidden 128,
-     random non-zero weights; float32, max |err| <= 1e-4 x output RMS.
+   * K2 (flow_coupling.cu) in its three modes, each 4 launches: the
+     coupling reverse and forward (4 couplings with flips) and wn_segment
+     (a 16-layer WaveNet, 4 layers a launch), on [1, 930, 128] and a ragged
+     batch of 2 (930 and 700 frames), hidden 128, and the reverse at hidden
+     256 ([1, 930, 256]); random non-zero weights; float32, max |err| <=
+     1e-4 x output RMS; the plan against the library's flow_plan; the
+     kernel's device time from torch.profiler, its 3xTF32 bound beside the
+     CUDA-core fp32 one, and the weight bytes its CTAs stream from L2.
    * mrf (K1): the four decoder stages of a 10 s utterance, [1, 7440, 256]
      ... [1, 476160, 32], random weights; float32 (max |err| <= 1e-4 x
      output RMS) and bf16 weights (error RMS <= 2e-2 x output RMS), 9
@@ -25,7 +31,10 @@
    TF32 products per multiply-add at 495 TFLOP/s, and both are printed).
    * stft_mel (K3): the train step's 16 x 4 s targets (spec + log-mel) and
      one padded 10 s voice_conversion source (spec only); spec max |err|
-     <= 1e-4 x max |spec|, log-mel max |err| <= 1e-4; also the time of
+     <= 1e-4 x max |spec| against the plain version, log-mel max |err|
+     <= 1e-4 against the plain version (a direct DFT summed in float64)
+     and against a float64 FFT on the host (the plain version's distance
+     from it is printed too); also the time of
      torch.stft + one fbank matmul (library_ms, a yardstick only), the
      ratio kernel_ms / library_ms, the bound's share of the kernel's time,
      and the kernel's device time from torch.profiler (device_ms, without
@@ -35,11 +44,16 @@
      sums over the fbank's non-zeros (stft_bound_ms).
    * fused_gate (K5): forward and backward on [16, 375, 256], against the
      plain op and its autograd, max |err| <= 1e-6 (grad_b, a sum over 375
-     frames, <= 375e-6).
+     frames, <= 375e-6); the kernels' device times with L2 flushed before
+     each launch (so that their inputs come from HBM, as the bound
+     assumes) and the bound's share of them, and the host
+     microseconds a launch costs (1000 launches, no sync), beside a replica
+     of the earlier host path.
    * mel_spectrogram (K4, the mel-only instance of stft_mel): the
      validation shape, one 10 s clip at 48 kHz (937 frames), and 16 x 4 s;
-     log-mel max |err| <= 1e-4 against its plain version and <= 1e-6
-     against K3's mel on the same input; also torch.stft + one fbank
+     log-mel max |err| <= 1e-4 against the plain version and a float64
+     FFT, as for K3, and <=
+     1e-6 against K3's mel on the same input; also torch.stft + one fbank
      matmul (library_ms), the ratios and the tiles as for K3.
 4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
@@ -54,8 +68,10 @@
    on the CPU, same perturbed weights and eps (atol 1e-3); then 3 synthetic
    10 s 48 kHz sources with distinct (source, target) speakers through
    VoiceConverter.voice_conversion in float32 and bf16. Per request: output
-   length = y_mask.sum() * hop, finite, and launches K3 1, K5 32, K2 4,
-   K1 36. ms and real-time factor.
+   length = y_mask.sum() * hop, finite, and launches K3 1, K5 0 (the gate
+   is K2's epilogue), K2 reverse 4, forward 4 and wn_segment 4, K1 36. ms
+   and real-time factor; a breakdown that also times the module paths the
+   posterior and the flow forward no longer take.
 6. Path B (TrainStep), full widths: 5 steps at batch 16 of paired synthetic
    2-4 s clips (x_pitch from the known f0), segment 16384, float32. Every
    loss finite; after step 1 every trainable parameter changed and HuBERT
@@ -112,7 +128,7 @@ STAGE_SHAPES = ((7440, 256), (59520, 128), (238080, 64), (476160, 32))  # 930 fr
 FLOW_FRAMES, FLOW_CH, FLOW_HID, FLOW_LAYERS, FLOW_K, N_FLOWS = 930, 128, 128, 4, 5, 4
 SPEAKERS = (3, 77, 411)
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "48k_base.json")
-STFT_TOL = 1e-4   # spec: x max |spec|; log-mel: absolute
+STFT_TOL = 1e-4   # spec: x max |spec|; log-mel: absolute; against the plain version and float64
 MEL_K3_TOL = 1e-6  # K4's log-mel against K3's, same sums: absolute
 GATE_TOL = 1e-6   # absolute, fp32 elementwise
 TRAIN_RTOL = 1e-3  # card vs CPU, one train step, every loss and grad norm
@@ -178,18 +194,45 @@ def stft_bound_ms(b: int, t: int, rows: int, n_fft: int, n_mels: int, nnz: int, 
     return bound_ms(rows * per_frame, 4 * nbytes, FP32_FLOPS)
 
 
-def kernel_device_ms(fn, name: str, reps: int = 5) -> float:
+def log_mel_f64(y: torch.Tensor, n_fft: int, hop: int, win: int, n_mels: int, sr: int):
+    """The log-mel in float64 NumPy on the host (reflect pad, rfft, the 1e-6
+    floor, the dense fbank product), on y's device: a second reference for
+    the K3 and K4 log-mels beside the plain version, independent of its
+    direct DFT."""
+    from vcvits_tpu_torch.dsp.spectrogram import _padded_window, mel_filterbank
+
+    pad = (n_fft - hop) // 2
+    yp = np.pad(y.double().cpu().numpy(), ((0, 0), (pad, pad)), mode="reflect")
+    nf = 1 + (yp.shape[1] - n_fft) // hop
+    frames = np.lib.stride_tricks.sliding_window_view(yp, n_fft, axis=1)[:, ::hop][:, :nf]
+    x = np.fft.rfft(frames * _padded_window(n_fft, win, np.float64), axis=-1)
+    spec = np.sqrt(x.real ** 2 + x.imag ** 2 + 1e-6)
+    fbank = mel_filterbank(sr, n_fft, n_mels).astype(np.float64)
+    return torch.as_tensor(np.log(np.maximum(spec @ fbank.T, 1e-5)), device=y.device)
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def kernel_device_ms(fn, name: str, reps: int = 5, flush_l2: bool = False) -> float:
     """Device time per call of fn of the kernels whose name holds `name`,
     from torch.profiler (device events only, `reps` calls after a warm-up):
     the kernel alone, without the host's cost per call that CUDA events
-    around a short call take in. NaN where the profiler saw no such kernel."""
+    around a short call take in. With `flush_l2`, a 256 MB buffer is
+    written before each call, so that fn reads its inputs from device
+    memory as its bytes bound assumes, not from the L2 its previous call
+    left them in (the buffer's fill kernel is not counted). NaN where the
+    profiler saw no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush_l2 else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if scratch is not None:
+                scratch.zero_()
             fn()
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
@@ -227,64 +270,123 @@ def build_phase(_build) -> None:
               f"spill stores {spills} bytes")
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path("mrf"))], capture_output=True,
-                          text=True, check=True, timeout=120).stdout.splitlines()
-    hmma = sum(" HMMA." in line for line in sass)
-    hgmma = sum(" HGMMA." in line for line in sass)
-    print(f"SASS mrf: {hmma} HMMA, {hgmma} HGMMA instructions (tensor cores)")
-    if hmma + hgmma == 0:
-        raise AssertionError("mrf: the library's SASS has no HMMA or HGMMA instruction")
+    for name in ("mrf", "flow_coupling"):
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
+                              text=True, check=True, timeout=120).stdout.splitlines()
+        hmma = sum(" HMMA." in line for line in sass)
+        hgmma = sum(" HGMMA." in line for line in sass)
+        print(f"SASS {name}: {hmma} HMMA, {hgmma} HGMMA instructions (tensor cores)")
+        if hmma + hgmma == 0:
+            raise AssertionError(f"{name}: the library's SASS has no HMMA or HGMMA instruction")
+
+
+def flow_weights(rng, dev, half: int, h: int):
+    """Random non-zero folded weights of one coupling, the last WN layer's
+    res_skip packed into the skip half (its res half zero)."""
+    n_l, k = FLOW_LAYERS, FLOW_K
+    shapes = ((half, h), (h,), (n_l, k, h, 2 * h), (n_l, 2 * h), (n_l, h, 2 * h), (n_l, 2 * h),
+              (h, half), (half,))
+    ws = tuple(torch.tensor(rng.standard_normal(s) / np.sqrt(s[-2] * (k if len(s) == 4 else 1))
+                            if len(s) > 1 else rng.standard_normal(s) * 0.1,
+                            dtype=torch.float32, device=dev) for s in shapes)
+    ws[4][-1, :, :h] = 0
+    ws[5][-1, :h] = 0
+    return ws
+
+
+def flow_bounds(mode: str, b: int, t: int, c: int, h: int):
+    """K2's least time for 4 launches of `mode` on [b, t, c] (4 couplings, or
+    a 16-layer WaveNet as 4 segments): bytes of the inputs, outputs and
+    weights once; operations 2 * multiply-adds a frame (pre, the K-tap
+    convs, res_skip without the packed zero half, post). Returns (3xTF32
+    bound and what bounds it, the CUDA-core fp32 bound, L2 weight bytes a
+    launch: each CTA of each tile streams its slice of the weights)."""
+    from vcvits_tpu_torch.ops.flow_coupling import plan
+
+    n_l, k, half = FLOW_LAYERS, FLOW_K, c // 2
+    wn = n_l * k * h * 2 * h + (n_l - 1) * h * 2 * h + h * h
+    coupling = mode != "wn_segment"
+    macs = b * t * N_FLOWS * (wn + (half * h + h * half if coupling else 0))
+    n_w = (n_l * k * h * 2 * h + n_l * h * 2 * h + 4 * n_l * h
+           + ((half * h + h + h * half + half) if coupling else 0))
+    act = b * t * (2 * c if coupling else 4 * h) + b * t
+    nbytes = 4 * N_FLOWS * (act + n_w + b * n_l * 2 * h)
+    tc_ms, tc_by = bound_ms(3 * 2 * macs, nbytes, TF32_FLOPS)
+    cores_ms, _ = bound_ms(2 * macs, nbytes, FP32_FLOPS)
+    p = plan(h, k, n_l, half if coupling else None)
+    ctas = b * -(-t // p.tile) * p.cluster
+    per_cta = 4 * (n_l * (k + 1) * h * 2 * p.pairs + ((half * p.pairs + h * half) if coupling
+                                                      else 0))
+    return tc_ms, tc_by, cores_ms, ctas * per_cta
 
 
 def flow_phase(rng, dev, _build):
+    """K2's three modes at the paths' shapes against their plain versions:
+    4 couplings reverse and forward, and the posterior's 16-layer WaveNet as
+    4 wn_segment launches, on [1, 930, 128] and a ragged batch of 2; the
+    reverse also at hidden 256 (configs/base.json's flow)."""
     from vcvits_tpu_torch.ops.flow_coupling import (
-        coupling_reverse, coupling_reverse_plain, pick_tile)
+        KERNEL_NAMES, WN_SEGMENT_LAYERS, coupling_forward, coupling_forward_plain,
+        coupling_reverse, coupling_reverse_plain, kernel_plan, plan, wn_segment,
+        wn_segment_plain)
 
-    c, h, n_l, k, t = FLOW_CH, FLOW_HID, FLOW_LAYERS, FLOW_K, FLOW_FRAMES
-    half = c // 2
-    shapes = ((half, h), (h,), (n_l, k, h, 2 * h), (n_l, 2 * h), (n_l, h, 2 * h), (n_l, 2 * h),
-              (h, half), (half,))
+    modes = {"flow_coupling_reverse": (coupling_reverse, coupling_reverse_plain),
+             "flow_coupling_forward": (coupling_forward, coupling_forward_plain),
+             "wn_segment": (wn_segment, wn_segment_plain)}
+    assert set(modes) == set(KERNEL_NAMES.values())
+    for h, half in ((FLOW_HID, FLOW_CH // 2), (256, 128)):
+        for n_l, hf in ((FLOW_LAYERS, half), (WN_SEGMENT_LAYERS, None)):
+            p = plan(h, FLOW_K, n_l, hf)
+            if (p.cluster, p.tile, p.smem) != kernel_plan(h, FLOW_K, n_l, hf):
+                raise AssertionError(f"flow plan {p} differs from the library's flow_plan")
+    out = {}
+    cases = [(name, b, FLOW_FRAMES, FLOW_CH, FLOW_HID) for name in modes for b in (1, 2)]
+    cases.append(("flow_coupling_reverse", 1, FLOW_FRAMES, 256, 256))
+    for name, b, t, c, h in cases:
+        kernel, plain = modes[name]
+        couplings = [flow_weights(rng, dev, c // 2, h) for _ in range(N_FLOWS)]
+        conds = [torch.tensor(rng.standard_normal((b, FLOW_LAYERS * 2 * h)) * 0.3,
+                              dtype=torch.float32, device=dev) for _ in range(N_FLOWS)]
+        lens = torch.tensor([t - 230 * i for i in range(b)], device=dev)
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()[..., None]
+        if name == "wn_segment":
+            x = torch.tensor(rng.standard_normal((b, t, h)), dtype=torch.float32,
+                             device=dev) * mask
 
-    def rand(shape, scale):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
+            def chain(fn):
+                y, skip = x, torch.zeros_like(x)
+                for w, cnd in zip(couplings, conds):
+                    y, skip = fn(y, skip, mask, cnd, w[2:6])
+                return skip * mask
+        else:
+            x = torch.tensor(rng.standard_normal((b, t, c)), dtype=torch.float32, device=dev)
 
-    couplings = [tuple(rand(s, 1.0 / np.sqrt(s[-2] * (k if len(s) == 4 else 1)) if len(s) > 1
-                            else 0.1) for s in shapes) for _ in range(N_FLOWS)]
-    for cw in couplings:  # the last WN layer's res_skip has H outputs, packed into the skip half
-        cw[4][-1, :, :h] = 0
-        cw[5][-1, :h] = 0
-    conds = [rand((1, n_l * 2 * h), 0.3) for _ in range(N_FLOWS)]
-    x = rand((1, t, c), 1.0)
-    mask = torch.ones(1, t, 1, device=dev)
+            def chain(fn):
+                y = x
+                for w, cnd in zip(couplings, conds):
+                    y = fn(torch.flip(y, dims=[-1]).contiguous(), mask, cnd, w)
+                return y
 
-    def chain(fn):
-        y = x
-        for w, cnd in zip(couplings, conds):
-            y = fn(torch.flip(y, dims=[-1]).contiguous(), mask, cnd, w)
-        return y
-
-    got, ref = chain(coupling_reverse), chain(coupling_reverse_plain)
-    torch.cuda.synchronize()
-    err, rel = rel_err(got, ref)
-    if not (rel <= FLOW_TOL and torch.isfinite(got).all()):
-        raise AssertionError(f"flow_coupling_reverse: max |err| {err:.3e} = {rel:.3e} x RMS "
-                             f"> {FLOW_TOL}")
-    ms, launches = timed(lambda: chain(coupling_reverse), _build, "flow_coupling_reverse")
-    plain_ms = cuda_ms(lambda: chain(coupling_reverse_plain))
-    # per frame: pre, n_l in-convs, n_l - 1 res_skip of H x 2H and the last of
-    # H x H, post; the packed zero half of the last res_skip is not counted
-    macs = t * N_FLOWS * (half * h + n_l * k * h * 2 * h + (n_l - 1) * h * 2 * h + h * h
-                          + h * half)
-    n_weights = sum(w.numel() for cw in couplings for w in cw) - N_FLOWS * (h * h + h)
-    nbytes = 4 * (N_FLOWS * (2 * t * c + t) + n_weights + sum(cd.numel() for cd in conds))
-    b_ms, b_by = bound_ms(2 * macs, nbytes, FP32_FLOPS)
-    print(f"flow_coupling_reverse [1,{t},{c}] x{N_FLOWS} couplings fp32 (tile "
-          f"{pick_tile(1, t, torch.cuda.get_device_properties(dev).multi_processor_count)}): "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) launches={launches:g} max_abs_err={err:.3e} "
-          f"rel={rel:.3e}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err}
+        got, ref = chain(kernel), chain(plain)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        label = f"{name} [{b},{t},{c}] hidden {h}"
+        if not (rel <= FLOW_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: max |err| {err:.3e} = {rel:.3e} x RMS > {FLOW_TOL}")
+        ms, launches = timed(lambda: chain(kernel), _build, name)
+        device_ms = kernel_device_ms(lambda: chain(kernel), "wn_stack_kernel")
+        plain_ms = cuda_ms(lambda: chain(plain))
+        b_ms, b_by, cores_ms, l2_bytes = flow_bounds(name, b, t, c, h)
+        print(f"{label} x{N_FLOWS} launches fp32: kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, 3xTF32; CUDA-core fp32 "
+              f"{cores_ms:.4f}) bound share {b_ms / ms:.4f} (device {b_ms / device_ms:.4f}) "
+              f"launches={launches:g} max_abs_err={err:.3e} rel={rel:.3e}; "
+              f"L2 weight bytes a launch {l2_bytes / 1e6:.2f} MB")
+        out[(name, b, h)] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_cuda_cores": cores_ms,
+                             "l2_weight_bytes": l2_bytes, "max_abs_err": err, "rel_err": rel}
+        del couplings, conds, x, got, ref
+    return out
 
 
 def mrf_bound_ms(t: int, c: int, n_w: int, wdt):
@@ -563,11 +665,19 @@ def stft_phase(rng, dev, _build):
         torch.cuda.synchronize()
         top = rspec.abs().max().item()
         err = (spec - rspec).abs().max().item()
-        mel_err = (mel - rmel).abs().max().item() if with_mel else 0.0
+        mel_err = mel_f64_err = plain_f64_err = 0.0
+        if with_mel:
+            exact = log_mel_f64(y, n_fft, hop, n_fft, n_mels, sr)
+            mel_err = (mel - rmel).abs().max().item()
+            mel_f64_err = (mel.double() - exact).abs().max().item()
+            plain_f64_err = (rmel.double() - exact).abs().max().item()
         lib_err = (lspec - rspec).abs().max().item()
-        if not (err <= STFT_TOL * top and mel_err <= STFT_TOL and torch.isfinite(spec).all()):
+        if not (err <= STFT_TOL * top and mel_err <= STFT_TOL and mel_f64_err <= STFT_TOL
+                and torch.isfinite(spec).all()):
             raise AssertionError(f"stft_mel {label}: spec max |err| {err:.3e} (limit "
-                                 f"{STFT_TOL * top:.3e}), log-mel max |err| {mel_err:.3e}")
+                                 f"{STFT_TOL * top:.3e}), log-mel max |err| {mel_err:.3e} "
+                                 f"against the plain version and {mel_f64_err:.3e} against "
+                                 f"float64 (limit {STFT_TOL})")
         ms, launches = timed(kernel, _build, "stft_mel")
         plain_ms, library_ms = cuda_ms(plain), cuda_ms(library)
         mode = SPEC_MEL if with_mel else SPEC_ONLY
@@ -581,7 +691,8 @@ def stft_phase(rng, dev, _build):
               f"{' + mel' if with_mel else ''}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (torch.stft + matmul, max |diff| {lib_err:.3e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) launches={launches:g} max_abs_err={err:.3e} "
-              f"(max |spec| {top:.3e}) mel_max_abs_err={mel_err:.3e}")
+              f"(max |spec| {top:.3e}) mel_max_abs_err={mel_err:.3e} (against float64: the "
+              f"kernel {mel_f64_err:.3e}, the plain version {plain_f64_err:.3e})")
         print(stft_report(f"stft_mel {label}", ms, device_ms, library_ms, b_ms, tile_ms))
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library_ms, "max_abs_err": max(err, mel_err)}
@@ -627,22 +738,68 @@ def gate_phase(rng, dev, _build):
 
     bwd_wrap_ms = cuda_ms(backward_of(fused_gate), reps=20)
     bwd_plain_ms = cuda_ms(backward_of(fused_add_tanh_sigmoid_multiply), reps=20)
+    dev_ms = kernel_device_ms(lambda: launch_forward(a, b2, h), "gate_fwd_kernel", reps=20,
+                              flush_l2=True)
+    bwd_dev_ms = kernel_device_ms(lambda: launch_backward(go, a, b2, h), "gate_bwd_kernel",
+                                  reps=20, flush_l2=True)
+    host_us, host_us_before = gate_host_us(a, b2, h, _build)
     rows = b * t
     f_bytes = 4 * (rows * 2 * h + b * 2 * h + rows * h)
     b_bytes = 4 * (rows * h + rows * 2 * h + b * 2 * h + rows * 2 * h + b * 2 * h)
     fwd_bound, fwd_by = bound_ms(6 * rows * h, f_bytes, FP32_FLOPS)
     bwd_bound, bwd_by = bound_ms(12 * rows * h, b_bytes, FP32_FLOPS)
     print(f"fused_gate [{b},{t},{2 * h}] fp32 forward: kernel_ms={ms:.4f} "
-          f"wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={fwd_bound:.4f} "
-          f"({fwd_by}) launches={launches:g} max_abs_err={errs[0]:.3e}")
+          f"device_ms={dev_ms:.4f} (L2 flushed before each launch; bound share "
+          f"{fwd_bound / dev_ms:.3f}) wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={fwd_bound:.4f} ({fwd_by}) launches={launches:g} "
+          f"max_abs_err={errs[0]:.3e}; host us per launch {host_us:.2f} (the earlier host path, "
+          f"replicated: {host_us_before:.2f})")
     print(f"fused_gate [{b},{t},{2 * h}] fp32 backward: kernel_ms={bwd_ms:.4f} "
-          f"autograd_ms={bwd_wrap_ms:.4f} plain_autograd_ms={bwd_plain_ms:.4f} "
-          f"bound_ms={bwd_bound:.4f} ({bwd_by}) launches={bwd_launches:g} "
-          f"grad_a max_abs_err={errs[1]:.3e} grad_b max_abs_err={errs[2]:.3e}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
-            "max_abs_err": errs[0], "wrapper_ms": wrap_ms, "ms_backward": bwd_ms,
+          f"device_ms={bwd_dev_ms:.4f} (L2 flushed; bound share {bwd_bound / bwd_dev_ms:.3f}) "
+          f"autograd_ms={bwd_wrap_ms:.4f} "
+          f"plain_autograd_ms={bwd_plain_ms:.4f} bound_ms={bwd_bound:.4f} ({bwd_by}) "
+          f"launches={bwd_launches:g} grad_a max_abs_err={errs[1]:.3e} "
+          f"grad_b max_abs_err={errs[2]:.3e}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": fwd_bound,
+            "bound_by": fwd_by, "max_abs_err": errs[0], "wrapper_ms": wrap_ms,
+            "host_us_per_launch": host_us, "host_us_per_launch_before": host_us_before,
+            "ms_backward": bwd_ms, "device_ms_backward": bwd_dev_ms,
             "autograd_ms_backward": bwd_wrap_ms, "plain_autograd_ms_backward": bwd_plain_ms,
             "bound_ms_backward": bwd_bound, "max_abs_err_backward": max(errs[1:])}
+
+
+def gate_host_us(a, b2, h: int, _build, n: int = 1000):
+    """Host microseconds a K5 forward launch costs, perf_counter over n
+    launches with no sync: the wrapper's `launch_forward`, and a replica of
+    the host path it had earlier (a torch.cuda.device context,
+    the library looked up and its types checked, a torch.cuda.Stream built
+    for its handle) calling the same library entry. The replica is a
+    timing aid outside every counted run, not a wrapper."""
+    from vcvits_tpu_torch.ops.fused_gate import _lib, launch_forward
+
+    bsz, t, _ = a.shape
+    lib = _lib()
+
+    def before():
+        out = torch.empty(bsz, t, h, dtype=a.dtype, device=a.device)
+        with torch.cuda.device(a.device):
+            old = _build.load("fused_gate")
+            getattr(old, "_vc_typed", False)
+            err = lib.fused_gate_fwd(a.data_ptr(), b2.data_ptr(), out.data_ptr(), bsz, t, h, 0,
+                                     torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(err, "fused_gate_fwd")
+        return out
+
+    res = {}
+    for label, fn in (("after", lambda: launch_forward(a, b2, h)), ("before", before)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        res[label] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return res["after"], res["before"]
 
 
 def mel_phase(rng, dev, _build):
@@ -676,12 +833,16 @@ def mel_phase(rng, dev, _build):
         mel, ref, k3_mel, lib = kernel(), plain(), spectrogram_mel(y, n_fft, n_mels, sr, hop,
                                                                    n_fft)[1], library()
         torch.cuda.synchronize()
+        exact = log_mel_f64(y, n_fft, hop, n_fft, n_mels, sr)
         err = (mel - ref).abs().max().item()
+        f64_err = (mel.double() - exact).abs().max().item()
+        plain_f64_err = (ref.double() - exact).abs().max().item()
         k3_err = (mel - k3_mel).abs().max().item()
         lib_err = (lib - ref).abs().max().item()
-        if not (err <= STFT_TOL and k3_err <= MEL_K3_TOL and torch.isfinite(mel).all()
-                and mel.shape == ref.shape):
-            raise AssertionError(f"mel_spectrogram {label}: log-mel max |err| {err:.3e} (limit "
+        if not (err <= STFT_TOL and f64_err <= STFT_TOL and k3_err <= MEL_K3_TOL
+                and torch.isfinite(mel).all() and mel.shape == ref.shape):
+            raise AssertionError(f"mel_spectrogram {label}: log-mel max |err| {err:.3e} against "
+                                 f"the plain version and {f64_err:.3e} against float64 (limit "
                                  f"{STFT_TOL}), against K3's mel {k3_err:.3e} (limit "
                                  f"{MEL_K3_TOL})")
         ms, launches = timed(kernel, _build, "mel_spectrogram")
@@ -695,7 +856,8 @@ def mel_phase(rng, dev, _build):
         print(f"mel_spectrogram (K4) {label} [{b},{t}] -> [{mel.shape[0]},{mel.shape[1]},"
               f"{n_mels}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"(torch.stft + matmul, max |diff| {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}) "
-              f"launches={launches:g} max_abs_err={err:.3e} vs_k3_mel={k3_err:.3e}")
+              f"launches={launches:g} max_abs_err={err:.3e} (against float64: the kernel "
+              f"{f64_err:.3e}, the plain version {plain_f64_err:.3e}) vs_k3_mel={k3_err:.3e}")
         print(stft_report(f"mel_spectrogram (K4) {label}", ms, device_ms, library_ms, b_ms,
                           tile_ms))
         out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -775,17 +937,25 @@ def path_a_breakdown(vc, wav48, s_src: int, s_tgt: int, label: str) -> None:
         parts["spec (K3)"] = cuda_ms(lambda: spectrogram(y, d.filter_length, d.hop_length,
                                                          d.win_length), 2)
         spec = spec.to(g_mod.dtype)
-        z, _, _, y_mask = g_mod.enc_q(spec, lens, g=g_src)
-        parts["posterior (K5 x16)"] = cuda_ms(lambda: g_mod.enc_q(spec, lens, g=g_src), 2)
-        z_p = g_mod.flow(z, y_mask, g=g_src)
-        parts["flow forward (K5 x16)"] = cuda_ms(lambda: g_mod.flow(z, y_mask, g=g_src), 2)
+        z, _, _, y_mask = g_mod.enc_q(spec, lens, g=g_src, fused_wn=True)
+        parts["posterior (K2 wn_segment x4)"] = cuda_ms(
+            lambda: g_mod.enc_q(spec, lens, g=g_src, fused_wn=True), 2)
+        z_p = g_mod.flow.kernel_forward(z, y_mask, g=g_src)
+        parts["flow forward (K2 x4)"] = cuda_ms(
+            lambda: g_mod.flow.kernel_forward(z, y_mask, g=g_src), 2)
         z_hat = g_mod.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)
         parts["flow reverse (K2)"] = cuda_ms(
             lambda: g_mod.flow.kernel_reverse(z_p, y_mask, g=g_tgt), 2)
         parts["decoder (K1)"] = cuda_ms(
             lambda: g_mod.dec(z_hat * y_mask, g=g_tgt, fused_mrf=True), 2)
+        # the module paths these replaced (training's), timed in the same call
+        modules = {"posterior modules (K5 x16)": cuda_ms(
+            lambda: g_mod.enc_q(spec, lens, g=g_src), 2),
+            "flow forward modules (K5 x16)": cuda_ms(lambda: g_mod.flow(z, y_mask, g=g_src), 2)}
     print(f"path A breakdown {label} (device ms, one 10 s request): " + ", ".join(
-        f"{k}={v:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()):.3f}")
+        f"{k}={v:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()):.3f}; "
+        "module paths, not run by voice_conversion: " + ", ".join(
+            f"{k}={v:.3f}" for k, v in modules.items()))
 
 
 def path_a_phase(dev, _build, card: str):
@@ -818,7 +988,10 @@ def path_a_phase(dev, _build, card: str):
 
     m = cfg.model
     from vcvits_tpu_torch.ops.mrf import launches_per_stage
-    per_req = {"stft_mel": 1, "fused_gate": 2 * 16, "flow_coupling_reverse": 4,
+    # K2 in its three modes: the reverse and forward flows, the posterior's
+    # 16 WaveNet layers 4 a launch; no standalone K5 (the gate is K2's epilogue)
+    per_req = {"stft_mel": 1, "fused_gate": 0, "flow_coupling_reverse": 4,
+               "flow_coupling_forward": 4, "wn_segment": 4,
                "mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes)}
     with tempfile.TemporaryDirectory() as tmp:
         srcs = write_sources(tmp, sr=48000)
@@ -1194,6 +1367,16 @@ def main() -> int:
     print(f"main-path launches by path: {json.dumps(paths)}; all phases "
           f"{time.perf_counter() - t0:.1f} s on {card}")
     f32, b16 = mrf_res[torch.float32], mrf_res[torch.bfloat16]
+    # K2's modes: the coupling reverse replaces the Pallas kernel; the
+    # forward and the WaveNet segment replace flax module paths whose gate is K5
+    REPLACES = {
+        "flow_coupling_reverse": ("vcvits_tpu/ops/flow_pallas.py:137",
+                                  "vcvits_tpu/ops/flow_pallas.py:126 (_coupling_reverse)"),
+        "flow_coupling_forward": ("vcvits_tpu/ops/fused_gate.py:44",
+                                  "vcvits_tpu/models/flow.py:34 (ResidualCouplingLayer, "
+                                  "forward), its WN's gate K5"),
+        "wn_segment": ("vcvits_tpu/ops/fused_gate.py:44",
+                       "vcvits_tpu/models/wavenet.py:33 (WN, the posterior's), its gate K5")}
     kernels = [
         {"name": "mrf", "route": "cuda", "source": "vcvits_tpu_torch/csrc/mrf.cu",
          "replaces": "vcvits_tpu/ops/mrf_pallas.py:134", "launches": counts.get("mrf", 0),
@@ -1203,13 +1386,23 @@ def main() -> int:
          "bound_ms_3xtf32": f32["bound_ms_3xtf32"], "ms_bf16": b16["ms"],
          "device_ms_bf16": b16["device_ms"], "plain_ms_bf16": b16["plain_ms"],
          "bound_ms_bf16": b16["bound_ms"], "max_abs_err_bf16": b16["max_abs_err"]},
-        {"name": "flow_coupling_reverse", "route": "cuda",
-         "source": "vcvits_tpu_torch/csrc/flow_coupling.cu",
-         "replaces": "vcvits_tpu/ops/flow_pallas.py:137",
-         "launches": counts.get("flow_coupling_reverse", 0),
-         "max_abs_err": flow["max_abs_err"], "ms": flow["ms"], "plain_ms": flow["plain_ms"],
-         "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"], "library_ms": None},
     ]
+    for name in ("flow_coupling_reverse", "flow_coupling_forward", "wn_segment"):
+        one, two = flow[(name, 1, FLOW_HID)], flow[(name, 2, FLOW_HID)]
+        entry = {"name": name, "route": "cuda", "source": "vcvits_tpu_torch/csrc/flow_coupling.cu",
+                 "replaces": REPLACES[name][0], "replaces_path": REPLACES[name][1],
+                 "launches": counts.get(name, 0),
+                 "max_abs_err": max(one["max_abs_err"], two["max_abs_err"]), "ms": one["ms"],
+                 "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+                 "bound_by": one["bound_by"], "library_ms": None, "device_ms": one["device_ms"],
+                 "bound_ms_cuda_cores": one["bound_ms_cuda_cores"],
+                 "l2_weight_bytes": one["l2_weight_bytes"], "ms_b2": two["ms"],
+                 "device_ms_b2": two["device_ms"], "bound_ms_b2": two["bound_ms"]}
+        if name == "flow_coupling_reverse":
+            wide = flow[(name, 1, 256)]
+            entry.update(ms_h256=wide["ms"], device_ms_h256=wide["device_ms"],
+                         bound_ms_h256=wide["bound_ms"], max_abs_err_h256=wide["max_abs_err"])
+        kernels.append(entry)
     train, vc = stft["train 16 x 4 s"], stft["vc 1 x 10.08 s"]
     kernels.append(
         {"name": "stft_mel", "route": "cuda", "source": "vcvits_tpu_torch/csrc/stft_mel.cu",

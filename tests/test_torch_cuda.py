@@ -13,16 +13,18 @@ round the conv inputs to bf16 on both sides; where the two sums land on
 either side of a bf16 step the input moves by 2^-8 relative, and that
 spreads through the chained convs: the error's RMS <= 2e-2 x the output's
 RMS. The STFT kernel (K3) takes an FFT where the plain version sums a
-direct DFT by matmul: spec max |err| <= 1e-4 x max |spec|, log-mel max
-|err| <= 1e-4. The mel-only instance (K4) runs K3's FFT and band sums
-without writing the spectrogram: log-mel max |err| <= 1e-4 against the
-plain version and <= 1e-6 against K3's mel at the same tile. Both are
-checked at both frame tiles, at n_fft 2048, 1024 and 512 and at 256
-mels, where the log-mel is held to 1e-4 against a float64 FFT instead:
-at 256 mels the lowest filters are narrower than a bin, so the plain
-version's own fp32 DFT rounding (2.6e-4 against float64, on a CPU)
-reaches its log-mel unaveraged. A size the kernel does not take raises on a CUDA tensor. The gate
-(K5) is elementwise in fp32: forward and gradients <= 1e-6.
+direct DFT by float64 matmul: spec max |err| <= 1e-4 x max |spec|,
+log-mel max |err| <= 1e-4. The mel-only instance (K4) runs K3's FFT and
+band sums without writing the spectrogram: log-mel max |err| <= 1e-4
+against the plain version and <= 1e-6 against K3's mel at the same tile.
+Both are checked at both frame tiles, at n_fft 2048, 1024 and 512 and at
+256 mels, where the lowest filters are narrower than a bin and the
+log-mel is held to 1e-4 against the plain version and against a float64
+NumPy FFT as well. A size the kernel does not take raises on a CUDA tensor. The gate
+(K5) is elementwise in fp32: forward and gradients <= 1e-6. The WaveNet
+kernel (K2) runs 3xTF32 like K1: its three modes (coupling reverse and
+forward, a WaveNet segment) are held to max |err| <= 1e-4 x the output's
+RMS against the plain version, at hidden 64, 128 and 256.
 """
 
 import numpy as np
@@ -31,7 +33,11 @@ import torch
 
 from vcvits_tpu_torch.dsp.spectrogram import _padded_window, mel_filterbank
 from vcvits_tpu_torch.ops import _build
-from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
+from vcvits_tpu_torch.ops.flow_coupling import (
+    coupling_forward, coupling_forward_plain, coupling_reverse, coupling_reverse_plain,
+    wn_segment, wn_segment_plain)
+from vcvits_tpu_torch.ops.flow_coupling import kernel_plan as flow_kernel_plan
+from vcvits_tpu_torch.ops.flow_coupling import plan as flow_plan
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.mrf import kernel_plan, launches_per_stage, mrf, mrf_plain, plan
 from vcvits_tpu_torch.ops.stft_mel import MEL_ONLY, SPEC_MEL, SPEC_ONLY
@@ -162,12 +168,13 @@ def _flow_inputs(rng, batch, t, c, hidden, n_layers, dev, with_cond):
     return x, mask, cond, weights
 
 
-@pytest.mark.parametrize("tile", [8, 16, 32])
+# T below one 64-frame tile, 64k + 1, and 150 (ragged rows t, t - 7, t - 14)
+@pytest.mark.parametrize("t", [37, 129, 150])
 @pytest.mark.parametrize("with_cond", [True, False])
-def test_flow_kernel_matches_plain(dev, tile, with_cond):
-    x, mask, cond, w = _flow_inputs(np.random.default_rng(tile), 3, 77, 8, 16, 4, dev, with_cond)
+def test_flow_kernel_matches_plain(dev, t, with_cond):
+    x, mask, cond, w = _flow_inputs(np.random.default_rng(t), 3, t, 32, 64, 4, dev, with_cond)
     before = _build.LAUNCHES["flow_coupling_reverse"]
-    got = coupling_reverse(x, mask, cond, w, tile=tile)
+    got = coupling_reverse(x, mask, cond, w)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flow_coupling_reverse"] - before == 1
     ref = coupling_reverse_plain(x, mask, cond, w)
@@ -179,6 +186,68 @@ def test_flow_kernel_full_width(dev):
     x, mask, cond, w = _flow_inputs(np.random.default_rng(9), 1, 930, 128, 128, 4, dev, True)
     got = coupling_reverse(x, mask, cond, w)
     assert _rel_err(got, coupling_reverse_plain(x, mask, cond, w)) < 1e-4
+
+
+@pytest.mark.parametrize("hidden,c", [(256, 256), (192, 192)])
+def test_flow_kernel_wide(dev, hidden, c):
+    """configs/base.json's flow (hidden 256, 32 channels a CTA, a cluster of
+    8) and hidden 192 (a cluster of 6), ragged batch 2."""
+    x, mask, cond, w = _flow_inputs(np.random.default_rng(hidden), 2, 300, c, hidden, 4, dev,
+                                    True)
+    got = coupling_reverse(x, mask, cond, w)
+    assert _rel_err(got, coupling_reverse_plain(x, mask, cond, w)) < 1e-4
+
+
+@pytest.mark.parametrize("b,t,hidden", [(1, 930, 128), (2, 129, 64), (2, 200, 256)])
+def test_flow_forward_kernel_matches_plain(dev, b, t, hidden):
+    x, mask, cond, w = _flow_inputs(np.random.default_rng(t + 1), b, t, hidden, hidden, 4, dev,
+                                    True)
+    before = _build.LAUNCHES["flow_coupling_forward"]
+    got = coupling_forward(x, mask, cond, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flow_coupling_forward"] - before == 1
+    assert _rel_err(got, coupling_forward_plain(x, mask, cond, w)) < 1e-4
+
+
+@pytest.mark.parametrize("b,t,hidden,n_layers,with_cond", [(1, 930, 128, 4, True),
+                                                           (2, 129, 128, 4, False),
+                                                           (2, 77, 64, 3, True),
+                                                           (1, 300, 256, 4, True)])
+def test_wn_segment_kernel_matches_plain(dev, b, t, hidden, n_layers, with_cond):
+    rng = np.random.default_rng(t + hidden)
+    x, mask, cond, w = _flow_inputs(rng, b, t, 2 * hidden, hidden, n_layers, dev, with_cond)
+    h = torch.tensor(rng.standard_normal((b, t, hidden)), dtype=torch.float32, device=dev) * mask
+    skip = torch.tensor(rng.standard_normal((b, t, hidden)), dtype=torch.float32, device=dev)
+    before = _build.LAUNCHES["wn_segment"]
+    got = wn_segment(h, skip, mask, cond, w[2:6])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wn_segment"] - before == 1
+    for g, r in zip(got, wn_segment_plain(h, skip, mask, cond, w[2:6])):
+        assert g.dtype == torch.float32 and _rel_err(g, r) < 1e-4
+
+
+def test_flow_kernel_refuses(dev):
+    """A width the kernel does not take, and a tensor that requires grad,
+    raise on a CUDA tensor: no fallback to the plain version."""
+    x, mask, cond, w = _flow_inputs(np.random.default_rng(3), 1, 40, 48, 96, 4, dev, True)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        coupling_reverse(x, mask, cond, w)
+    x, mask, cond, w = _flow_inputs(np.random.default_rng(3), 1, 40, 32, 64, 4, dev, True)
+    with pytest.raises(ValueError, match="no backward"):
+        coupling_forward(x.requires_grad_(), mask, cond, w)
+
+
+def test_flow_plan_matches_kernel(dev):
+    for hidden in (32, 64, 96, 128, 192, 256, 320):
+        for k, layers, half in ((5, 4, 64), (5, 4, None), (3, 4, 16), (5, 16, None),
+                                (7, 4, 128)):
+            try:
+                p = flow_plan(hidden, k, layers, half)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    flow_kernel_plan(hidden, k, layers, half)
+                continue
+            assert (p.cluster, p.tile, p.smem) == flow_kernel_plan(hidden, k, layers, half)
 
 
 def _wave(rng, b, t, dev):
@@ -262,14 +331,15 @@ def _log_mel64(y, n_fft, hop, win, n_mels, sr, fmin, fmax):
 @pytest.mark.parametrize("name", list(STFT_SIZES))
 def test_stft_kernel_other_sizes(dev, name, tile):
     """The three instances at the other sizes the repo runs, 2 x 0.3 s:
-    spec against the plain version, log-mel against a float64 FFT."""
+    spec and log-mel against the plain version, log-mel against a float64
+    NumPy FFT too."""
     n_fft, hop, win, n_mels, sr, fmin, fmax = STFT_SIZES[name]
     y = _wave(np.random.default_rng(n_fft + n_mels), 2, 14400, dev)
     spec, mel = stft_launch(y, SPEC_MEL, n_fft, hop, win, n_mels, sr, fmin, fmax, tile=tile)
     only = stft_launch(y, SPEC_ONLY, n_fft, hop, win, tile=tile)[0]
     mel4 = stft_launch(y, MEL_ONLY, n_fft, hop, win, n_mels, sr, fmin, fmax, tile=tile)[1]
     torch.cuda.synchronize()
-    ref_spec = spectrogram_plain(y, n_fft, hop, win)
+    ref_spec, plain_mel = spectrogram_mel_plain(y, n_fft, n_mels, sr, hop, win, fmin, fmax)
     ref_mel = _log_mel64(y, n_fft, hop, win, n_mels, sr, fmin, fmax)
     assert spec.shape == only.shape == ref_spec.shape == (2, 1 + (14400 - hop) // hop,
                                                           n_fft // 2 + 1)
@@ -277,6 +347,7 @@ def test_stft_kernel_other_sizes(dev, name, tile):
     top = ref_spec.abs().max().item()
     assert (spec - ref_spec).abs().max().item() <= 1e-4 * top
     assert (only - ref_spec).abs().max().item() <= 1e-4 * top
+    assert (mel - plain_mel).abs().max().item() <= 1e-4
     np.testing.assert_allclose(mel.cpu().numpy(), ref_mel, rtol=0, atol=1e-4)
     assert (mel4 - mel).abs().max().item() <= 1e-6
 

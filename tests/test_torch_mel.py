@@ -2,8 +2,8 @@
 
 On the CPU, JAX's `mel_spectrogram_fused` takes its XLA path (as
 tests/test_stft_pallas.py runs it): an rfft at HIGHEST precision. The
-port's `mel_spectrogram_plain` is a DFT by fp32 matmul against the bases
-the kernel reads. The two log-mels agree to 1e-4 absolute at the 48k
+port's `mel_spectrogram_plain` is a DFT by float64 matmul against the
+windowed bases, rounded to fp32. The two log-mels agree to 1e-4 absolute at the 48k
 settings and at the small ones; the 2048-term sums in another order move
 the log-mel by a few 1e-6 where the mel energy is well above the clip. The
 wrapper takes the plain version for a CPU tensor and counts no launch,

@@ -52,15 +52,16 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def dft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+def dft_basis(n_fft: int, win_length: int,
+              dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     """Windowed real-DFT basis [n_fft, n_fft//2+1] (cos, -sin), built in
-    float64 and stored as float32."""
+    float64 and stored as `dtype`."""
     k = np.arange(n_fft // 2 + 1)
     n = np.arange(n_fft)
     ang = 2.0 * math.pi * np.outer(n, k) / n_fft
     win = _padded_window(n_fft, win_length, np.float64)
-    cos_b = (np.cos(ang) * win[:, None]).astype(np.float32)
-    sin_b = (-np.sin(ang) * win[:, None]).astype(np.float32)
+    cos_b = (np.cos(ang) * win[:, None]).astype(dtype)
+    sin_b = (-np.sin(ang) * win[:, None]).astype(dtype)
     return cos_b, sin_b
 
 

@@ -1,10 +1,12 @@
 """Residual-coupling normalizing flow (prior <-> posterior bridge), PyTorch.
 
 Counterpart of vcvits_tpu/models/flow.py: mean-only couplings with a
-zero-initialised `post`, and a channel flip between couplings. The forward
-direction is the module path; the reverse (`kernel_reverse`, also
-`forward(reverse=True)`) goes through ops/flow_coupling.py (kernel K2 on a
-CUDA tensor, its plain version on a CPU tensor).
+zero-initialised `post`, and a channel flip between couplings. `forward`
+is the module path in the forward direction (training: its WN gate is
+kernel K5). The no-grad paths go through ops/flow_coupling.py, kernel K2
+on a CUDA tensor and its plain version on a CPU tensor, one launch a
+coupling: `kernel_reverse` (also `forward(reverse=True)`) and
+`kernel_forward` (the flow forward of `voice_conversion`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 
 from vcvits_tpu_torch.models.layers import Conv1d, FoldCache
 from vcvits_tpu_torch.models.wavenet import WN
-from vcvits_tpu_torch.ops.flow_coupling import Weights, coupling_reverse
+from vcvits_tpu_torch.ops.flow_coupling import Weights, coupling_forward, coupling_reverse
 
 
 class ResidualCouplingLayer(nn.Module):
@@ -41,31 +43,16 @@ class ResidualCouplingLayer(nn.Module):
 
     def kernel_weights(self) -> Weights:
         """Folded float32 weights in ops/flow_coupling.py's layout."""
-        enc = self.enc
-        hidden = enc.hidden_channels
-        if enc.dilation_rate != 1:
-            raise NotImplementedError("the coupling kernel takes dilation rate 1")
-        w_in, b_in, w_rs, b_rs = [], [], [], []
-        for i in range(enc.n_layers):
-            conv = getattr(enc, f"in_{i}")
-            w_in.append(conv.kernel().permute(2, 1, 0))  # [K, H, 2H]
-            b_in.append(conv.bias)
-            rs = getattr(enc, f"res_skip_{i}")
-            kr, br = rs.kernel()[:, :, 0].t(), rs.bias      # [H, 2H | H]
-            if kr.shape[1] == hidden:  # last layer: pack into the skip half
-                kr = torch.cat([torch.zeros_like(kr), kr], dim=1)
-                br = torch.cat([torch.zeros_like(br), br])
-            w_rs.append(kr)
-            b_rs.append(br)
-        ws = (self.pre.kernel()[:, :, 0].t(), self.pre.bias, torch.stack(w_in),
-              torch.stack(b_in), torch.stack(w_rs), torch.stack(b_rs),
+        w_in, b_in, w_rs, b_rs = self.enc.kernel_weights()
+        ws = (self.pre.kernel()[:, :, 0].t(), self.pre.bias, w_in, b_in, w_rs, b_rs,
               self.post.kernel()[:, :, 0].t(), self.post.bias)
         return tuple(w.detach().float().contiguous() for w in ws)
 
 
 class ResidualCouplingBlock(FoldCache):
-    """n_flows x (coupling + flip); forward z -> z_p, reverse iterates back
-    through ops/flow_coupling.py on weights folded once (`FoldCache`)."""
+    """n_flows x (coupling + flip); forward z -> z_p, reverse iterates back.
+    The no-grad directions run ops/flow_coupling.py on weights folded once
+    (`FoldCache`)."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, n_flows: int = 4, gin_channels: int = 0,
@@ -86,13 +73,30 @@ class ResidualCouplingBlock(FoldCache):
             x = torch.flip(x, dims=[-1])
         return x
 
+    def _kernel_weights(self):
+        """The couplings and, folded once, each one's kernel weights and
+        speaker layer."""
+        flows = [getattr(self, f"flow_{i}") for i in range(self.n_flows)]
+        return flows, self.folded(lambda: [(flow.kernel_weights(), flow.enc.cond_weights())
+                                           for flow in flows])
+
+    def kernel_forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                       g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`forward` without gradients through ops/flow_coupling.py, one
+        coupling per call; the flip and the speaker GEMV stay outside the
+        kernel."""
+        flows, weights = self._kernel_weights()
+        for flow, (w, cw) in zip(flows, weights):
+            x = coupling_forward(x.contiguous(), x_mask, flow.enc.cond_vector(g, cw), w)
+            x = torch.flip(x, dims=[-1])
+        return x
+
     def kernel_reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
                        g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The inference reverse through ops/flow_coupling.py, one coupling
         per call; the flip and the speaker GEMV stay outside the kernel."""
-        flows = [getattr(self, f"flow_{i}") for i in range(self.n_flows)]
-        weights = self.folded(lambda: [flow.kernel_weights() for flow in flows])
-        for flow, w in zip(reversed(flows), reversed(weights)):
+        flows, weights = self._kernel_weights()
+        for flow, (w, cw) in zip(reversed(flows), reversed(weights)):
             x = torch.flip(x, dims=[-1]).contiguous()
-            x = coupling_reverse(x, x_mask, flow.enc.cond_vector(g), w)
+            x = coupling_reverse(x, x_mask, flow.enc.cond_vector(g, cw), w)
         return x

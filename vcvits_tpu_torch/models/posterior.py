@@ -1,8 +1,11 @@
 """WaveNet posterior encoder q(z | y_spec, g).
 
 Counterpart of vcvits_tpu/models/posterior.py: 1x1 `pre` conv -> 16-layer
-WN with the speaker conditioning (its gate is kernel K5 on a CUDA tensor)
--> 1x1 `proj` -> (m, logs), and the sample z = (m + eps * exp(logs)) * mask.
+WN with the speaker conditioning -> 1x1 `proj` -> (m, logs), and the sample
+z = (m + eps * exp(logs)) * mask. The WN runs as modules (its gate kernel
+K5 on a CUDA tensor, with a backward), or with `fused_wn=True`, for no-grad
+callers, as `WN.kernel_forward` (kernel K2's WaveNet mode, four layers a
+launch).
 `eps` replaces the normal draw from `generator` (tests inject JAX's draw).
 """
 
@@ -30,12 +33,13 @@ class PosteriorEncoder(nn.Module):
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, g: Optional[torch.Tensor] = None,
-                eps: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None
+                eps: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                fused_wn: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """x: [B, T, spec_channels]; returns (z, m, logs, x_mask)."""
         x_mask = sequence_mask(x_lengths, x.shape[1]).to(x.dtype)
         h = self.pre(x) * x_mask
-        h = self.enc(h, x_mask, g=g)
+        h = self.enc.kernel_forward(h, x_mask, g) if fused_wn else self.enc(h, x_mask, g=g)
         stats = self.proj(h) * x_mask
         m, logs = stats[..., :self.out_channels], stats[..., self.out_channels:]
         if eps is None:

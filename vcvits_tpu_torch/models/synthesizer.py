@@ -6,10 +6,10 @@ Counterpart of vcvits_tpu/models/synthesizer.py:SynthesizerSVC:
   nearest-interpolated to 48 kHz frames; z_p = m_p + eps * exp(logs_p) *
   noise_scale; the flow reverse (ops/flow_coupling.py, K2) gives z; the
   HiFi-GAN decoder (ops/mrf.py per stage, K1) gives the wave.
-* `voice_conversion`: the flow swap. The posterior encoder (its WN gate is
-  K5) takes the source spectrogram with the source speaker, the flow
-  forward maps z to z_p, and the reverse with the target speaker (K2) and
-  the decoder (K1) give the wave.
+* `voice_conversion`: the flow swap. The posterior encoder (its WN as K2's
+  WaveNet mode, `fused_wn`) takes the source spectrogram with the source
+  speaker, the flow forward (K2's forward mode) maps z to z_p, and the
+  reverse with the target speaker (K2) and the decoder (K1) give the wave.
 * `forward`: the training forward. enc_p and enc_q, the flow forward, the
   prior interpolated to the spectrogram frames, a random segment of z
   through the decoder's differentiable path (fused_mrf=False).
@@ -177,8 +177,8 @@ class SynthesizerSVC(nn.Module):
             raise ValueError("voice_conversion needs speaker embeddings (n_speakers >= 1)")
         g_src, g_tgt = self.emb_g(sid_src), self.emb_g(sid_tgt)
         z, _, _, y_mask = self.enc_q(y_spec.to(self.dtype), y_spec_lengths, g=g_src, eps=eps,
-                                     generator=generator)
-        z_p = self.flow(z, y_mask, g=g_src)
+                                     generator=generator, fused_wn=True)
+        z_p = self.flow.kernel_forward(z, y_mask, g=g_src)
         z_hat = self.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)
         o_hat = self.dec(z_hat * y_mask, g=g_tgt, fused_mrf=True)
         return o_hat, y_mask, (z, z_p, z_hat)

@@ -13,12 +13,17 @@ them; `load(name)` builds on first use. ptxas's register and spill report
 is kept beside each library as `<name>.log`.
 
 `LAUNCHES` counts kernel launches by kernel name: every wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. `device_guard` and
+`current_stream` are the wrappers' host path to a launch: no device switch
+when the tensor is on the current device, and the raw handle of the
+current stream without building a `torch.cuda.Stream`; `aligned16` gives
+the kernels' 16-byte vector loads an aligned tensor.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -26,6 +31,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -103,3 +110,28 @@ def check(err: int, kernel: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError_t {err}")
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle (cudaStream_t as an int) of PyTorch's current stream on
+    CUDA `device`."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself where a kernel's 16-byte loads can read it, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def device_guard(device: torch.device):
+    """A context that makes CUDA `device` current for a launch: a no-op when
+    it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

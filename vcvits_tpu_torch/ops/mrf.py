@@ -163,8 +163,8 @@ def mrf(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int],
     lib = _lib()
     bf16 = int(wdt == torch.bfloat16)
     bsz, t_len, c = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _build.device_guard(x.device):
+        stream = _build.current_stream(x.device)
         xf = x.float().contiguous()
         hs = (torch.empty_like(xf), torch.empty_like(xf))  # ping-pong: a pair reads its halo
         total = torch.zeros_like(xf)

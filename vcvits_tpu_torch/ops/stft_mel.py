@@ -14,8 +14,11 @@ Three instances of one kernel, csrc/stft_mel.cu:
 
 A CPU tensor goes to the plain versions (`spectrogram_mel_plain`,
 `spectrogram_plain`, `mel_spectrogram_plain`: a direct DFT by matmul
-against dsp/spectrogram.py:dft_basis and the dense fbank product); a CUDA
-tensor launches csrc/stft_mel.cu once or raises. The kernel computes the
+against dsp/spectrogram.py:dft_basis and the dense fbank product, both in
+float64 and rounded to fp32 at the end: in fp32 the 2048-term sums alone
+put the log-mel 1e-4 off where a bin's energy is far below its frame's,
+the limit the kernel is held to against this version); a CUDA tensor
+launches csrc/stft_mel.cu once or raises. The kernel computes the
 same function through a real FFT (an n_fft/2-point complex Stockham FFT
 and the split step) and sums each mel filter over its band of bins only.
 Its tables are host-side and pure, so the CPU tests hold them:
@@ -59,21 +62,22 @@ def _on_device(device: torch.device, make, *key) -> torch.Tensor:
 
 
 def _cos_basis(n_fft: int, win_length: int) -> np.ndarray:
-    return dft_basis(n_fft, win_length)[0]
+    return dft_basis(n_fft, win_length, np.float64)[0]
 
 
 def _sin_basis(n_fft: int, win_length: int) -> np.ndarray:
-    return dft_basis(n_fft, win_length)[1]
+    return dft_basis(n_fft, win_length, np.float64)[1]
 
 
 def _fbank_t(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: Optional[float]) -> np.ndarray:
-    return mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T
+    """The fp32 filterbank the kernel reads, widened to float64."""
+    return mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T.astype(np.float64)
 
 
 def _tables(device: torch.device, n_fft: int, win_length: int, n_mels: Optional[int] = None,
             sr: int = 0, fmin: float = 0.0, fmax: Optional[float] = None):
-    """The plain versions' (cos [n_fft, F], sin [n_fft, F], fbank [F, n_mels]
-    or None) on `device`."""
+    """The plain versions' float64 (cos [n_fft, F], sin [n_fft, F], fbank
+    [F, n_mels] or None) on `device`."""
     fbank = None if n_mels is None else _on_device(device, _fbank_t, sr, n_fft, n_mels, fmin,
                                                    fmax)
     return (_on_device(device, _cos_basis, n_fft, win_length),
@@ -81,16 +85,23 @@ def _tables(device: torch.device, n_fft: int, win_length: int, n_mels: Optional[
 
 
 def _frames(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    return reflect_pad(y.float(), (n_fft - hop_length) // 2).unfold(-1, n_fft, hop_length)
+    """The fp32 samples' frames, widened to float64."""
+    return reflect_pad(y.float().double(), (n_fft - hop_length) // 2).unfold(-1, n_fft,
+                                                                             hop_length)
 
 
-def spectrogram_plain(y: torch.Tensor, n_fft: int, hop_length: int,
-                      win_length: int) -> torch.Tensor:
-    """[B, T] -> |STFT| [B, NF, n_fft//2+1] in PyTorch ops: a direct DFT."""
+def _spectrogram64(y: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int) -> torch.Tensor:
     cos_b, sin_b, _ = _tables(y.device, n_fft, win_length)
     fr = _frames(y, n_fft, hop_length)
     re, im = fr @ cos_b, fr @ sin_b
     return torch.sqrt(re * re + im * im + 1e-6)
+
+
+def spectrogram_plain(y: torch.Tensor, n_fft: int, hop_length: int,
+                      win_length: int) -> torch.Tensor:
+    """[B, T] -> |STFT| [B, NF, n_fft//2+1] fp32 in PyTorch ops: a direct DFT."""
+    return _spectrogram64(y, n_fft, hop_length, win_length).float()
 
 
 def spectrogram_mel_plain(y: torch.Tensor, n_fft: int, n_mels: int, sr: int, hop_length: int,
@@ -99,8 +110,8 @@ def spectrogram_mel_plain(y: torch.Tensor, n_fft: int, n_mels: int, sr: int, hop
     """[B, T] -> (spec, log-mel) in PyTorch ops: a direct DFT and the dense
     fbank product."""
     _, _, fbank = _tables(y.device, n_fft, win_length, n_mels, sr, fmin, fmax)
-    spec = spectrogram_plain(y, n_fft, hop_length, win_length)
-    return spec, torch.log(torch.clamp_min(spec @ fbank, clip_val))
+    spec = _spectrogram64(y, n_fft, hop_length, win_length)
+    return spec.float(), torch.log(torch.clamp_min(spec @ fbank, clip_val)).float()
 
 
 def mel_spectrogram_plain(y: torch.Tensor, n_fft: int, n_mels: int, sr: int, hop_length: int,
@@ -257,7 +268,7 @@ def _launch(y: torch.Tensor, mode: int, n_fft: int, hop_length: int, win_length:
     weights = (_on_device(y.device, _band_weights, sr, n_fft, n_mels, fmin, fmax) if with_mel
                else None)
     lib = _lib()
-    with torch.cuda.device(y.device):
+    with _build.device_guard(y.device):
         yf = y.float().contiguous()
         spec = torch.empty(b, nf, n_fft // 2 + 1, dtype=torch.float32, device=y.device) \
             if with_spec else None
@@ -269,7 +280,7 @@ def _launch(y: torch.Tensor, mode: int, n_fft: int, hop_length: int, win_length:
                            spec.data_ptr() if with_spec else None,
                            mel.data_ptr() if with_mel else None, b, t, n_fft, hop_length,
                            n_mels, tile, mode, clip_val,
-                           torch.cuda.current_stream(y.device).cuda_stream)
+                           _build.current_stream(y.device))
         _build.check(err, "stft_mel")
         _build.LAUNCHES["mel_spectrogram" if mode == MEL_ONLY else "stft_mel"] += 1
     return spec, mel
