@@ -17,7 +17,9 @@
      256 ([1, 930, 256]); random non-zero weights; float32, max |err| <=
      1e-4 x output RMS; the plan against the library's flow_plan; the
      kernel's device time from torch.profiler, its 3xTF32 bound beside the
-     CUDA-core fp32 one, and the weight bytes its CTAs stream from L2.
+     CUDA-core fp32 one, and the weight bytes its CTAs stream from L2. The
+     reverse also with bf16 in and out ([1, 930, 128], as a bf16
+     validation runs it): error RMS <= 2e-2 x output RMS.
    * mrf (K1): the four decoder stages of a 10 s utterance, [1, 7440, 256]
      ... [1, 476160, 32], random weights; float32 (max |err| <= 1e-4 x
      output RMS) and bf16 weights (error RMS <= 2e-2 x output RMS), 9
@@ -44,7 +46,9 @@
      sums over the fbank's non-zeros (stft_bound_ms).
    * fused_gate (K5): forward and backward on [16, 375, 256], against the
      plain op and its autograd, max |err| <= 1e-6 (grad_b, a sum over 375
-     frames, <= 375e-6); the kernels' device times with L2 flushed before
+     frames, <= 375e-6), and in bf16 (as a bf16 train step runs it) error
+     RMS <= 1e-2 x RMS for out, grad_a and grad_b; the kernels' device
+     times with L2 flushed before
      each launch (so that their inputs come from HBM, as the bound
      assumes) and the bound's share of them, and the host
      microseconds a launch costs (1000 launches, no sync), beside a replica
@@ -73,18 +77,31 @@
    and real-time factor; a breakdown that also times the module paths the
    posterior and the flow forward no longer take.
 6. Path B (TrainStep), full widths: 5 steps at batch 16 of paired synthetic
-   2-4 s clips (x_pitch from the known f0), segment 16384, float32. Every
-   loss finite; after step 1 every trainable parameter changed and HuBERT
-   did not; launches per step K3 1, K5 64 forward and 32 backward. ms/step
-   over steps 2-5 and peak memory. Then one step at B=2 x 1 s, dropout off,
-   injected draws, on the card and on the CPU: every loss and both grad
-   norms agree to rtol 1e-3. Per-part device times of one path A request
-   and of a train step (CUDA events), and one of each under torch.profiler
-   (device-busy time, idle share, costliest kernels), follow each path's
-   counted run.
-7. Path C (the training loop), full widths, float32, TF32 off: 40
-   training and 8 validation synthetic 2-4 s WAVs at 48 kHz (a known f0
-   contour, 4 speakers), `preprocess` in 8 processes, then
+   2-4 s clips (x_pitch from the known f0), segment 16384, in float32 and
+   then in bfloat16 (what "fp16_run": true selects). Every loss finite;
+   after step 1 every trainable parameter changed and HuBERT did not;
+   launches per step K3 1, K5 64 forward and 32 backward. ms/step over
+   steps 2-5 and peak memory. Then one step at B=2 x 1 s, dropout off,
+   injected draws, on the card and on the CPU, in each dtype: in float32
+   every loss and both grad norms agree to rtol 1e-3; in bf16 the totals,
+   the G terms and both grad norms to rtol 0.1 (TRAIN_RTOL_BF16: the
+   port's CPU bf16 step is up to 4.9e-2 from JAX's, tests/
+   test_torch_train_step_bf16.py), beside each one's distance over the
+   CPU's own bf16-vs-fp32 distance. Per-part device times of one path A
+   request and of a train step (CUDA events), and one of each under
+   torch.profiler (device-busy time, idle share, costliest kernels),
+   follow each path's counted run.
+6b. Gradient accumulation, full widths, bf16: accumulate_grad_batches 2 at
+   B=8, 4 mini-steps; the parameters are bit-equal to the ones before
+   after mini-steps 1 and 3 and move after 2 and 4 (HuBERT never); AdamW's
+   step is 2 after mini-step 4; ms per mini-step with and without the
+   update.
+7. Path C (the training loop), configs/48k_base.json as shipped
+   ("fp16_run": true: bf16 compute, TF32 off for what stays float32), only
+   the step counts, the intervals and the corpus changed: 40 training and
+   8 validation synthetic 2-4 s WAVs at 48 kHz (a known f0 contour, 4
+   speakers), `preprocess` in 8 processes with the C++ host DSP and again
+   with its NumPy version (each timed, the caches equal), then
    Trainer.fit(max_steps=6) with log_interval 1 and validation and
    checkpoints every 3 steps. The default device_data_cache "auto" must
    pick DeviceBatcher; launches around the fit are per step K3 1, K5 64
@@ -93,9 +110,15 @@
    reaches 8; request_stop() before a fit saves step 0; epoch 0 of
    BucketedLoader copied to the card equals DeviceBatcher's bit for bit;
    validate's metrics are in range; VoiceConverter.from_checkpoint
-   converts a validation file with length y_mask.sum() * hop. Prints
-   ms/step, the loader-wait share, ms per validate, the checkpoint's
-   blocking ms, write seconds and size, restore seconds and peak memory.
+   converts a validation file with length y_mask.sum() * hop. A run at
+   accumulate_grad_batches 2 checkpoints after mini-step 3 (mid-update);
+   a second Trainer restores the accumulator (mini-step, update count,
+   G's and D's running means) and the moments as saved and lands the
+   update at mini-step 4. Last, `python -m vcvits_tpu_torch.cli.train`'s
+   main on the shipped config with only the data paths changed trains 2
+   steps in bf16. Prints ms/step, the loader-wait share, ms per validate,
+   the checkpoint's blocking ms, write seconds and size, restore seconds
+   and peak memory.
 8. Prints the launches of each path (counters set to 0 just before each
    path and read just after), a `kernels` JSON line, then, last, the
    result line {"ok": true, "device": {...}}.
@@ -132,6 +155,11 @@ STFT_TOL = 1e-4   # spec: x max |spec|; log-mel: absolute; against the plain ver
 MEL_K3_TOL = 1e-6  # K4's log-mel against K3's, same sums: absolute
 GATE_TOL = 1e-6   # absolute, fp32 elementwise
 TRAIN_RTOL = 1e-3  # card vs CPU, one train step, every loss and grad norm
+TRAIN_RTOL_BF16 = 0.1  # card vs CPU, one bf16 train step, BF16_KEYS
+BF16_KEYS = ("loss/g/total", "loss/g/mel", "loss/g/kl", "loss/g/p_fm", "loss/g/s_fm",
+             "loss/g/p_gen", "loss/g/s_gen", "loss/d/total", "grad_norm_g", "grad_norm_d")
+GATE_TOL_BF16 = 1e-2  # error RMS / RMS, bf16 out and gradients
+ACC_K, ACC_BATCH, ACC_MINI_STEPS = 2, 8, 4
 PATH_A_PADDED = 483840  # a 10 s 48 kHz source padded to the 7680-sample unit
 GATE_SHAPE = (16, 375, 128)  # the train step's posterior WN: B, spectrogram frames, H
 N_TRAIN_STEPS = 5
@@ -385,6 +413,22 @@ def flow_phase(rng, dev, _build):
         out[(name, b, h)] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "bound_ms_cuda_cores": cores_ms,
                              "l2_weight_bytes": l2_bytes, "max_abs_err": err, "rel_err": rel}
+        if (name, b, h) == ("flow_coupling_reverse", 1, FLOW_HID):
+            # bf16 in and out, as a bf16 validation's flow reverse runs it
+            x32 = x
+            x = x32.bfloat16()
+            got, ref = chain(kernel), chain(plain)
+            torch.cuda.synchronize()
+            err16, rel16 = rel_err(got, ref, bf16=True)
+            if not (got.dtype == torch.bfloat16 and rel16 <= MRF_TOL[torch.bfloat16]
+                    and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{label} bf16 in/out: error RMS {rel16:.3e} x RMS > "
+                                     f"{MRF_TOL[torch.bfloat16]} (dtype {got.dtype})")
+            ms16, launches16 = timed(lambda: chain(kernel), _build, name)
+            print(f"{label} x{N_FLOWS} launches bf16 in/out: kernel_ms={ms16:.4f} "
+                  f"launches={launches16:g} max_abs_err={err16:.3e} rel_rms={rel16:.3e}")
+            out[(name + "_bf16", b, h)] = {"ms": ms16, "max_abs_err": err16, "rel_err": rel16}
+            x = x32
         del couplings, conds, x, got, ref
     return out
 
@@ -743,6 +787,27 @@ def gate_phase(rng, dev, _build):
     bwd_dev_ms = kernel_device_ms(lambda: launch_backward(go, a, b2, h), "gate_bwd_kernel",
                                   reps=20, flush_l2=True)
     host_us, host_us_before = gate_host_us(a, b2, h, _build)
+    # bf16 forward and backward, as a bf16 train step's WaveNets run them
+    a32, bb32, go32 = a, bb, go
+    a, bb, go = a32.bfloat16(), bb32.bfloat16(), go32.bfloat16()
+    res16 = {}
+    for fn in (fused_gate, fused_add_tanh_sigmoid_multiply):
+        out16, a_, b_ = graph(fn)
+        out16.backward(go)
+        res16[fn] = (out16.detach(), a_.grad, b_.grad)
+    torch.cuda.synchronize()
+    got16, ref16 = res16[fused_gate], res16[fused_add_tanh_sigmoid_multiply]
+    rel16 = [rel_err(g, r, bf16=True)[1] for g, r in zip(got16, ref16)]
+    if not (all(g.dtype == torch.bfloat16 for g in got16)
+            and all(e <= GATE_TOL_BF16 for e in rel16)):
+        raise AssertionError(f"fused_gate bf16: error RMS / RMS out/grad_a/grad_b {rel16} > "
+                             f"{GATE_TOL_BF16} (dtypes {[g.dtype for g in got16]})")
+    ms16, _ = timed(lambda: fused_gate(a, bb, h), _build, "fused_gate", reps=20)
+    bwd16 = cuda_ms(backward_of(fused_gate), reps=20)
+    print(f"fused_gate [{b},{t},{2 * h}] bf16: forward wrapper_ms={ms16:.4f}, backward "
+          f"autograd_ms={bwd16:.4f}; error RMS / RMS out {rel16[0]:.3e} grad_a {rel16[1]:.3e} "
+          f"grad_b {rel16[2]:.3e} (limit {GATE_TOL_BF16})")
+    a, bb, go = a32, bb32, go32
     rows = b * t
     f_bytes = 4 * (rows * 2 * h + b * 2 * h + rows * h)
     b_bytes = 4 * (rows * h + rows * 2 * h + b * 2 * h + rows * 2 * h + b * 2 * h)
@@ -765,7 +830,9 @@ def gate_phase(rng, dev, _build):
             "host_us_per_launch": host_us, "host_us_per_launch_before": host_us_before,
             "ms_backward": bwd_ms, "device_ms_backward": bwd_dev_ms,
             "autograd_ms_backward": bwd_wrap_ms, "plain_autograd_ms_backward": bwd_plain_ms,
-            "bound_ms_backward": bwd_bound, "max_abs_err_backward": max(errs[1:])}
+            "bound_ms_backward": bwd_bound, "max_abs_err_backward": max(errs[1:]),
+            "wrapper_ms_bf16": ms16, "autograd_ms_backward_bf16": bwd16,
+            "rel_rms_err_bf16": max(rel16)}
 
 
 def gate_host_us(a, b2, h: int, _build, n: int = 1000):
@@ -883,11 +950,20 @@ def perturbed_state(cfg):
     return model.state_dict()
 
 
+# kernel-name classes a profile sums: cuDNN's and CUTLASS's convolution
+# backward (data and weight gradients), their forward, and the layout
+# transposes cuDNN puts around its NHWC tensor-core kernels
+KERNEL_CLASSES = {"conv backward (dgrad + wgrad)": ("dgrad", "wgrad"),
+                  "conv forward": ("convolve", "fprop"),
+                  "NCHW <-> NHWC": ("nchwToNhwc", "nhwcToNchw")}
+
+
 def device_profile(fn, label: str, card: str, top: int = 6) -> None:
     """One call of fn under torch.profiler, tracing the device only: the
     host-clock wall time, the device-busy time (the union of the device
     events' intervals, so work that overlaps counts once, beside their
-    plain sum), the idle share 1 - busy / wall and the costliest kernels."""
+    plain sum), the idle share 1 - busy / wall, the costliest kernels and
+    the device ms of each KERNEL_CLASSES class."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,11 +988,15 @@ def device_profile(fn, label: str, card: str, top: int = 6) -> None:
     total = sum(end - start for start, end in spans) / 1e3
     rows = sorted((r for r in prof.key_averages() if r.device_type == DeviceType.CUDA),
                   key=lambda r: r.self_device_time_total, reverse=True)
+    classes = {name: sum(r.self_device_time_total for r in rows
+                         if any(k in r.key for k in keys)) / 1e3
+               for name, keys in KERNEL_CLASSES.items()}
     print(f"{label} profile: wall {wall:.3f} ms, device busy {busy:.3f} ms (events' sum "
           f"{total:.3f} ms, {len(spans)} events), idle share {1 - busy / wall:.3f} on {card}; "
           "costliest kernels: " + "; ".join(
               f"{r.key[:70]} {r.self_device_time_total / 1e3:.3f} ms x{r.count}"
-              for r in rows[:top]))
+              for r in rows[:top]) + "; by class: " + ", ".join(
+              f"{name} {ms:.3f} ms ({ms / busy:.3f} of busy)" for name, ms in classes.items()))
 
 
 def path_a_breakdown(vc, wav48, s_src: int, s_tgt: int, label: str) -> None:
@@ -1069,23 +1149,19 @@ def train_batch(cfg, b, lo_s, hi_s, rng, dev):
             "sid": as_t(rng.integers(0, d.n_speakers, b), torch.int64)}
 
 
-def path_b_phase(dev, _build, card: str):
-    """The GAN train step at full widths: 5 steps at the config's batch."""
-    from vcvits_tpu_torch.config import Config, load_config
+def train_steps(cfg, g_state, batch, dev, _build, card: str, dtype) -> tuple:
+    """N_TRAIN_STEPS steps of TrainStep in `dtype` on `batch`, counted ->
+    (launch counts, ms/step over steps 2-N, peak GiB)."""
     from vcvits_tpu_torch.train.state import is_frozen
-    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+    from vcvits_tpu_torch.train.step import TrainStep
 
-    cfg = load_config(CONFIG)
-    rng = np.random.default_rng(8)
-    batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, rng, dev)
-    # perturbed: with the flow's zero `post` every flow parameter but `post`
-    # would get a zero gradient in step 1, as in JAX
-    g_state = perturbed_state(cfg)
-    step = TrainStep(cfg, device=dev, g_state=g_state)
+    label = str(dtype)[6:]
+    step = TrainStep(cfg, device=dev, g_state=g_state, dtype=dtype)
     named = {f"gen.{n}": p for n, p in step.gen.named_parameters()}
     named.update({f"disc.{n}": p for n, p in step.disc.named_parameters()})
     before = {n: p.detach().clone() for n, p in named.items()}
     per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.LAUNCHES.clear()
     walls, last = [], None
@@ -1096,39 +1172,68 @@ def path_b_phase(dev, _build, card: str):
         walls.append(time.perf_counter() - t0)
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
-            raise AssertionError(f"path B step {i + 1}: non-finite {bad}")
+            raise AssertionError(f"path B {label} step {i + 1}: non-finite {bad}")
         if i == 0:
             frozen = [n for n in named if is_frozen(n)]
             moved = [n for n in frozen if not torch.equal(named[n], before[n])]
             still = [n for n in named if n not in frozen and torch.equal(named[n], before[n])]
             if moved or still or not frozen:
-                raise AssertionError(f"path B step 1: HuBERT moved {moved[:5]}, trainable "
-                                     f"unchanged {still[:5]} ({len(still)})")
-            print(f"path B step 1: {len(named) - len(frozen)} trainable tensors all changed, "
-                  f"{len(frozen)} HuBERT tensors unchanged")
+                raise AssertionError(f"path B {label} step 1: HuBERT moved {moved[:5]}, "
+                                     f"trainable unchanged {still[:5]} ({len(still)})")
+            print(f"path B {label} step 1: {len(named) - len(frozen)} trainable tensors all "
+                  f"changed, {len(frozen)} HuBERT tensors unchanged")
             del before
         last = metrics
     counts = dict(_build.LAUNCHES)
     for k, n in per_step.items():
         if counts.get(k, 0) != n * N_TRAIN_STEPS:
-            raise AssertionError(f"path B: {k} launched {counts.get(k, 0)} times in "
+            raise AssertionError(f"path B {label}: {k} launched {counts.get(k, 0)} times in "
                                  f"{N_TRAIN_STEPS} steps, expected {n * N_TRAIN_STEPS}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = np.mean(walls[1:]) * 1e3
-    print(f"path B: {N_TRAIN_STEPS} steps at B={cfg.train.batch_size}, 2-4 s clips padded to "
-          f"{batch['y_wav'].shape[1] / 48000:.2f} s, segment {cfg.train.segment_size}, fp32: "
+    print(f"path B {label}: {N_TRAIN_STEPS} steps at B={cfg.train.batch_size}, 2-4 s clips padded "
+          f"to {batch['y_wav'].shape[1] / 48000:.2f} s, segment {cfg.train.segment_size}: "
           f"{ms:.1f} ms/step over steps 2-{N_TRAIN_STEPS} (step 1 {walls[0] * 1e3:.1f} ms), "
           f"peak memory {peak:.2f} GiB on {card}; launches per step "
           f"{ {k: counts.get(k, 0) / N_TRAIN_STEPS for k in per_step} }")
-    print(f"path B step {N_TRAIN_STEPS} metrics: " + ", ".join(
+    print(f"path B {label} step {N_TRAIN_STEPS} metrics: " + ", ".join(
         f"{k}={float(v):.5g}" for k, v in last.items() if not k.startswith("loss/d_")))
     parts = {}
     for _ in range(2):  # after the counted run: device ms per section of a step
         step(batch, timings=parts)
-    print("path B breakdown (device ms per step, mean of 2 steps): " + ", ".join(
+    print(f"path B {label} breakdown (device ms per step, mean of 2 steps): " + ", ".join(
         f"{k}={v / 2:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()) / 2:.3f}")
-    device_profile(lambda: step(batch), "path B train step", card)
-    del step, batch
+    device_profile(lambda: step(batch), f"path B {label} train step", card)
+    del step
+    torch.cuda.empty_cache()
+    return {k: counts.get(k, 0) for k in per_step}, ms, peak
+
+
+def path_b_phase(dev, _build, card: str):
+    """The GAN train step at full widths: 5 steps at the config's batch in
+    float32 and in bf16, then a B=2 step on the card against the CPU in
+    each."""
+    from vcvits_tpu_torch.config import Config, load_config
+    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+
+    cfg = load_config(CONFIG)
+    rng = np.random.default_rng(8)
+    batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, rng, dev)
+    # perturbed: with the flow's zero `post` every flow parameter but `post`
+    # would get a zero gradient in step 1, as in JAX
+    g_state = perturbed_state(cfg)
+    counts, runs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c, ms, peak = train_steps(cfg, g_state, batch, dev, _build, card, dtype)
+        runs[str(dtype)[6:]] = {"ms_per_step": ms, "peak_gib": peak}
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    del batch
+    print(f"path B: float32 {runs['float32']['ms_per_step']:.1f} ms/step, "
+          f"{runs['float32']['peak_gib']:.2f} GiB; bfloat16 "
+          f"{runs['bfloat16']['ms_per_step']:.1f} ms/step, {runs['bfloat16']['peak_gib']:.2f} "
+          f"GiB; bf16 / fp32 time {runs['bfloat16']['ms_per_step'] / runs['float32']['ms_per_step']:.3f} "
+          f"on {card}")
 
     # one step on the card and on the CPU: same weights, batch and draws
     raw = cfg.to_dict()
@@ -1142,23 +1247,105 @@ def path_b_phase(dev, _build, card: str):
         rng.integers(0, t_spec - seg + 1, 2),
         rng.standard_normal((2, t_spec, cfg0.model.inter_channels)).astype(np.float32),
         rng.integers(0, t_spec - seg + 1, 2))))
-    cpu_step = TrainStep(cfg0, device="cpu", g_state=g_state)
-    card_step = TrainStep(cfg0, device=dev, g_state=cpu_step.gen.state_dict(),
-                          d_state=cpu_step.disc.state_dict())
     on = lambda d, dev_: {k: v.to(dev_) for k, v in d.items()}  # noqa: E731
-    got = card_step(on(small, dev), StepDraws(*(v.to(dev) for v in vars(draws).values())))
-    ref = cpu_step(small, draws)
-    keys = [k for k in ref if k.startswith("loss/") or k.startswith("grad_norm")]
-    rel = {k: abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6) for k in keys}
-    worst = max(rel, key=rel.get)
-    print(f"path B reference (B=2 x 1 s, dropout off, injected draws, card kernels vs CPU plain "
-          f"path): {len(keys)} losses and grad norms, worst rel diff {rel[worst]:.3e} ({worst}); "
-          f"grad_norm_g {float(got['grad_norm_g']):.6g} vs {float(ref['grad_norm_g']):.6g}, "
-          f"grad_norm_d {float(got['grad_norm_d']):.6g} vs {float(ref['grad_norm_d']):.6g}")
-    if not rel[worst] <= TRAIN_RTOL:
-        raise AssertionError(f"path B: {worst} differs by {rel[worst]:.3e} > {TRAIN_RTOL} "
-                             f"between the card and the CPU")
-    return {k: counts.get(k, 0) for k in per_step}, ms, peak
+    cpu_ref = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype)[6:]
+        cpu_step = TrainStep(cfg0, device="cpu", g_state=g_state, dtype=dtype)
+        card_step = TrainStep(cfg0, device=dev, g_state=cpu_step.gen.state_dict(),
+                              d_state=cpu_step.disc.state_dict(), dtype=dtype)
+        got = card_step(on(small, dev), StepDraws(*(v.to(dev) for v in vars(draws).values())))
+        ref = cpu_step(small, draws)
+        cpu_ref[dtype] = ref
+        del cpu_step, card_step
+        torch.cuda.empty_cache()
+        keys = ([k for k in ref if k.startswith("loss/") or k.startswith("grad_norm")]
+                if dtype == torch.float32 else list(BF16_KEYS))
+        tol = TRAIN_RTOL if dtype == torch.float32 else TRAIN_RTOL_BF16
+        rel = {k: abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6) for k in keys}
+        worst = max(rel, key=rel.get)
+        extra = ""
+        if dtype == torch.bfloat16:
+            r32 = cpu_ref[torch.float32]
+            ratio = {k: abs(float(got[k]) - float(ref[k]))
+                     / max(abs(float(ref[k]) - float(r32[k])), 1e-12) for k in keys}
+            wr = max(ratio, key=ratio.get)
+            extra = (f"; card-vs-CPU over the CPU's own bf16-vs-fp32 distance: largest "
+                     f"{ratio[wr]:.3f} ({wr}), " + ", ".join(f"{k} {v:.3f}"
+                                                              for k, v in ratio.items()))
+        print(f"path B reference {label} (B=2 x 1 s, dropout off, injected draws, card kernels vs "
+              f"CPU plain path): {len(keys)} losses and grad norms, worst rel diff "
+              f"{rel[worst]:.3e} ({worst}, limit {tol}); grad_norm_g "
+              f"{float(got['grad_norm_g']):.6g} vs {float(ref['grad_norm_g']):.6g}, grad_norm_d "
+              f"{float(got['grad_norm_d']):.6g} vs {float(ref['grad_norm_d']):.6g}{extra}")
+        if not rel[worst] <= tol:
+            raise AssertionError(f"path B {label}: {worst} differs by {rel[worst]:.3e} > {tol} "
+                                 f"between the card and the CPU")
+    return counts, runs
+
+
+def accumulation_phase(dev, _build, card: str):
+    """accumulate_grad_batches 2 in bf16 at B=8: the parameters move only on
+    every second mini-step, and AdamW counts the updates."""
+    from vcvits_tpu_torch.config import Config, load_config
+    from vcvits_tpu_torch.train.state import is_frozen
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    raw = load_config(CONFIG).to_dict()
+    raw["trainer"]["accumulate_grad_batches"] = ACC_K
+    cfg = Config.from_dict(raw)
+    dtype = torch.bfloat16 if cfg.train.fp16_run else torch.float32
+    batch = train_batch(cfg, ACC_BATCH, 2.0, 4.0, np.random.default_rng(9), dev)
+    step = TrainStep(cfg, device=dev, g_state=perturbed_state(cfg), dtype=dtype)
+    named = {f"gen.{n}": p for n, p in step.gen.named_parameters()}
+    named.update({f"disc.{n}": p for n, p in step.disc.named_parameters()})
+    per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    walls = []
+    for i in range(1, ACC_MINI_STEPS + 1):
+        before = {n: p.detach().clone() for n, p in named.items()}
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not all(torch.isfinite(v).all() for v in metrics.values()):
+            raise AssertionError(f"accumulation mini-step {i}: non-finite metrics")
+        moved = [n for n in named if not torch.equal(named[n], before[n])]
+        frozen_moved = [n for n in moved if is_frozen(n)]
+        n_trainable = sum(not is_frozen(n) for n in named)
+        if i % ACC_K:
+            if moved:
+                raise AssertionError(f"accumulation mini-step {i}: {len(moved)} tensors moved "
+                                     f"without an update ({moved[:3]})")
+        elif frozen_moved or len(moved) < 0.9 * n_trainable:
+            raise AssertionError(f"accumulation mini-step {i}: {len(moved)} of {n_trainable} "
+                                 f"trainable tensors moved, HuBERT {frozen_moved[:3]}")
+        del before
+    counts = dict(_build.LAUNCHES)
+    for k, n in per_step.items():
+        if counts.get(k, 0) != n * ACC_MINI_STEPS:
+            raise AssertionError(f"accumulation: {k} launched {counts.get(k, 0)} times in "
+                                 f"{ACC_MINI_STEPS} mini-steps, expected {n * ACC_MINI_STEPS}")
+    adam = {float(s["step"]) for s in step.g_opt.state.values()} | \
+        {float(s["step"]) for s in step.d_opt.state.values()}
+    n_up = ACC_MINI_STEPS // ACC_K
+    if adam != {float(n_up)} or step.updates != n_up or step.mini_step:
+        raise AssertionError(f"accumulation: AdamW steps {adam}, expected {{{n_up}}}; updates "
+                             f"{step.updates}, mini-step {step.mini_step}")
+    # mini-step 1 pays the first call at B=8 (cuDNN's choices): timed from 2
+    no_update = np.mean([w for i, w in enumerate(walls, 1) if i > 1 and i % ACC_K]) * 1e3
+    with_update = np.mean([w for i, w in enumerate(walls, 1) if not i % ACC_K]) * 1e3
+    print(f"accumulation: k={ACC_K}, B={ACC_BATCH}, {str(dtype)[6:]}, {ACC_MINI_STEPS} "
+          f"mini-steps: parameters bit-equal after mini-steps 1 and 3, moved after 2 and 4 "
+          f"(HuBERT never); AdamW step {sorted(adam)} after mini-step {ACC_MINI_STEPS}; "
+          f"{np.mean(walls[1:]) * 1e3:.1f} ms per mini-step over mini-steps 2-{ACC_MINI_STEPS} "
+          f"({no_update:.1f} without the update, {with_update:.1f} with it; mini-step 1 "
+          f"{walls[0] * 1e3:.1f}) on {card}; launches per mini-step "
+          f"{ {k: counts.get(k, 0) / ACC_MINI_STEPS for k in per_step} }")
+    del step, batch
+    torch.cuda.empty_cache()
+    return {k: counts.get(k, 0) for k in per_step}
 
 
 def write_corpus(tmp: str, n_train: int = 40, n_val: int = 8, n_speakers: int = 4):
@@ -1207,21 +1394,38 @@ def path_c_phase(dev, _build, card: str):
     with tempfile.TemporaryDirectory() as tmp:
         train_fl, val_fl = write_corpus(tmp)
         raw = load_config(CONFIG).to_dict()
-        raw["train"].update(fp16_run=False, steps_per_epoch=None, log_interval=1,
-                            eval_interval=3, checkpoint_interval=3)
+        # as shipped ("fp16_run": true) but for the step counts and intervals
+        raw["train"].update(steps_per_epoch=None, log_interval=1, eval_interval=3,
+                            checkpoint_interval=3)
         raw["data"].update(training_files=train_fl, validation_files=val_fl,
                            cache_dir=os.path.join(tmp, "cache"))
         cfg = Config.from_dict(raw)
-        t0 = time.perf_counter()
+        dtype = torch.bfloat16 if cfg.train.fp16_run else torch.float32
+        prep_s = {}
+        for plain in (False, True):  # the C++ host DSP, then its NumPy version
+            cache = os.path.join(tmp, "cache_numpy" if plain else "cache")
+            t0 = time.perf_counter()
+            for fl in (train_fl, val_fl):
+                preprocess(VoiceConversionDataset(fl, cfg.data, cache_dir=cache, plain_dsp=plain),
+                           num_workers=8, log_every=0)
+            prep_s[plain] = time.perf_counter() - t0
+        differ = []
         for fl in (train_fl, val_fl):
-            preprocess(VoiceConversionDataset(fl, cfg.data), num_workers=8, log_every=0)
-        prep_s = time.perf_counter() - t0
-        print(f"path C: preprocess of 48 clips (resample, pYIN, 8 processes) {prep_s:.2f} s on the "
-              f"host")
+            cpp = VoiceConversionDataset(fl, cfg.data)
+            ref = VoiceConversionDataset(fl, cfg.data, cache_dir=os.path.join(tmp, "cache_numpy"))
+            for i in range(len(cpp)):
+                a, b = cpp.get_item(i), ref.get_item(i)
+                differ += [(fl, i, k) for k in ("x_wav", "y_wav", "x_pitch")
+                           if not np.array_equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"path C: the C++ and NumPy host DSP caches differ: {differ[:5]}")
+        print(f"path C: preprocess of 48 clips (resample, pYIN, 8 processes) on the host: "
+              f"{prep_s[False]:.2f} s with the C++ host DSP, {prep_s[True]:.2f} s with its NumPy "
+              f"version ({prep_s[True] / prep_s[False]:.2f}x); every cached array equal")
 
         # request_stop() before fit: a checkpoint at the first boundary, step 0
         stop_dir = os.path.join(tmp, "stopped")
-        tr = Trainer(cfg, workdir=stop_dir, device=dev)
+        tr = Trainer(cfg, workdir=stop_dir, device=dev, dtype=dtype)
         tr.request_stop("chip_smoke")
         if tr.fit(max_steps=PATH_C_STEPS) != 0 or tr.ckpt.latest_step() != 0 or tr.history:
             raise AssertionError("path C: request_stop before fit did not stop at step 0 with a "
@@ -1231,7 +1435,7 @@ def path_c_phase(dev, _build, card: str):
         torch.cuda.empty_cache()
 
         workdir = os.path.join(tmp, "run")
-        trainer = Trainer(cfg, workdir=workdir, device=dev)
+        trainer = Trainer(cfg, workdir=workdir, device=dev, dtype=dtype)
         per_step = {"stft_mel": 1, "fused_gate": 2 * 2 * 16, "fused_gate_backward": 2 * 16}
         m = cfg.model
         per_val = {"mel_spectrogram": 4, "flow_coupling_reverse": 4,
@@ -1265,7 +1469,8 @@ def path_c_phase(dev, _build, card: str):
         ckpt_ms = [r["checkpoint_s"] * 1e3 for r in hist if "checkpoint_s" in r]
         size = os.path.getsize(os.path.join(trainer.ckpt.step_dir(PATH_C_STEPS), STATE_FILE))
         write_s = trainer.ckpt.timings["write_s"]
-        print(f"path C: fit({PATH_C_STEPS}) at B={cfg.train.batch_size}, fp32, DeviceBatcher, "
+        print(f"path C: fit({PATH_C_STEPS}) at B={cfg.train.batch_size}, {str(dtype)[6:]} "
+              f"(\"fp16_run\": {str(cfg.train.fp16_run).lower()}), DeviceBatcher, "
               f"{fit_s:.1f} s in all: {np.mean(plain) * 1e3:.1f} ms/step over the {len(plain)} "
               f"steps after the first without validation or checkpoint (first "
               f"{hist[0]['run_s'] * 1e3:.1f} ms), loader wait {wait_share:.4f} of the loop, "
@@ -1299,7 +1504,7 @@ def path_c_phase(dev, _build, card: str):
         torch.cuda.empty_cache()
 
         # resume: every restored tensor as saved, then on to step 8
-        again = Trainer(cfg, workdir=workdir, device=dev)
+        again = Trainer(cfg, workdir=workdir, device=dev, dtype=dtype)
         saved = CheckpointManager(os.path.join(workdir, "checkpoints")).restore(PATH_C_STEPS)
         if again.resume_or_init() != PATH_C_STEPS:
             raise AssertionError("path C: the second trainer did not resume at step 6")
@@ -1332,7 +1537,95 @@ def path_c_phase(dev, _build, card: str):
         print(f"path C: VoiceConverter.from_checkpoint (step {PATH_C_RESUME_TO}) converted "
               f"{len(out)} samples, finite")
         del vc
+        torch.cuda.empty_cache()
+        accumulation_resume(cfg, dtype, os.path.join(tmp, "accum"), dev, card)
+        cli_run(train_fl, val_fl, os.path.join(tmp, "cache"), os.path.join(tmp, "cli"), card)
     return counts
+
+
+def accumulation_resume(cfg, dtype, workdir: str, dev, card: str) -> None:
+    """accumulate_grad_batches 2: a checkpoint after mini-step 3 holds half
+    an update; a second Trainer restores the accumulator and the moments
+    as saved and lands the update at mini-step 4."""
+    import dataclasses
+
+    from vcvits_tpu_torch.train.checkpoint import CheckpointManager
+    from vcvits_tpu_torch.train.trainer import Trainer
+
+    cfg2 = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer,
+                                                                accumulate_grad_batches=2),
+                               train=dataclasses.replace(cfg.train, eval_interval=1000))
+    tr = Trainer(cfg2, workdir=workdir, device=dev, dtype=dtype)
+    if tr.fit(max_steps=3) != 3 or tr.train_step.mini_step != 1 or tr.train_step.updates != 1:
+        raise AssertionError("path C accumulation: fit(3) did not stop after mini-step 1 of "
+                             "the second update")
+    del tr
+    torch.cuda.empty_cache()
+    saved = CheckpointManager(os.path.join(workdir, "checkpoints")).restore(3)
+    again = Trainer(cfg2, workdir=workdir, device=dev, dtype=dtype)
+    if again.resume_or_init() != 3:
+        raise AssertionError("path C accumulation: the second trainer did not resume at 3")
+    state = again.train_step.state_dict()
+    acc, want = state["accum"], saved["accum"]
+    bad = [k for k in ("mini_step", "updates") if acc[k] != want[k]]
+    bad += [f"{side}.{n}" for side in ("g", "d") for n, v in want[side].items()
+            if not torch.equal(acc[side][n].cpu(), v)]
+    bad += [f"{opt}.{n}.{k}" for opt in ("g_opt", "d_opt") for n, m in saved[opt].items()
+            for k, v in m.items() if not torch.equal(state[opt][n][k].cpu(), v)]
+    n_means = len(want["g"]) + len(want["d"])
+    nonzero = sum(bool(v.any()) for side in ("g", "d") for v in want[side].values())
+    if bad or want["mini_step"] != 1 or not n_means or nonzero < 0.9 * n_means:
+        raise AssertionError(f"path C accumulation: restored state differs: {bad[:5]} "
+                             f"(mini-step {want['mini_step']}, {nonzero} of {n_means} means "
+                             f"non-zero)")
+    del saved, state, acc, want
+    if again.fit(max_steps=4) != 4 or again.train_step.updates != 2 or again.train_step.mini_step:
+        raise AssertionError("path C accumulation: the resumed fit did not land update 2 at 4")
+    print(f"path C accumulation: k=2, checkpoint after mini-step 3 (half of update 2) restored "
+          f"with its accumulator ({n_means} running means, mini-step 1, 1 update) and every "
+          f"moment as saved; the resumed fit landed update 2 at mini-step 4 on {card}")
+    del again
+    torch.cuda.empty_cache()
+
+
+def cli_run(train_fl: str, val_fl: str, cache: str, workdir: str, card: str) -> None:
+    """`python -m vcvits_tpu_torch.cli.train`'s main on configs/48k_base.json
+    with only the data paths changed: 2 steps in bf16 ("fp16_run": true)."""
+    from vcvits_tpu_torch.cli import train as cli
+    from vcvits_tpu_torch.train import trainer as trainer_mod
+    from vcvits_tpu_torch.train.checkpoint import CheckpointManager
+
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["data"].update(training_files=train_fl, validation_files=val_fl, cache_dir=cache)
+    cfg_path = os.path.join(os.path.dirname(workdir), "48k_base_data_paths.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    built = []
+
+    class Recorded(trainer_mod.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    original = trainer_mod.Trainer
+    trainer_mod.Trainer = Recorded
+    t0 = time.perf_counter()
+    try:
+        cli.main(["-c", cfg_path, "--workdir", workdir, "--max-steps", "2"])
+    finally:
+        trainer_mod.Trainer = original
+    wall = time.perf_counter() - t0
+    (tr,) = built
+    saved = CheckpointManager(os.path.join(workdir, "checkpoints")).restore()
+    if tr.dtype != torch.bfloat16 or saved["step"] != 2 or tr.train_step.step != 2:
+        raise AssertionError(f"cli.train: dtype {tr.dtype}, checkpoint step {saved['step']}")
+    print(f"cli.train -c <configs/48k_base.json, data paths changed> --max-steps 2: trained in "
+          f"{str(tr.dtype)[6:]} (fp16_run {raw['train']['fp16_run']}), checkpoint at step 2, "
+          f"{wall:.1f} s in all (preprocess of the cached corpus, build, 2 steps, checkpoint) "
+          f"on {card}")
+    del tr, built, saved
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1358,7 +1651,8 @@ def main() -> int:
     mel = mel_phase(rng, dev, _build)
     paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
         dev, _build, card)}
-    paths["train_step"], _, _ = path_b_phase(dev, _build, card)
+    paths["train_step"], _ = path_b_phase(dev, _build, card)
+    paths["accumulation"] = accumulation_phase(dev, _build, card)
     paths["training_loop"] = path_c_phase(dev, _build, card)
     counts = {}
     for path_counts in paths.values():
@@ -1399,9 +1693,11 @@ def main() -> int:
                  "l2_weight_bytes": one["l2_weight_bytes"], "ms_b2": two["ms"],
                  "device_ms_b2": two["device_ms"], "bound_ms_b2": two["bound_ms"]}
         if name == "flow_coupling_reverse":
-            wide = flow[(name, 1, 256)]
+            wide, b16 = flow[(name, 1, 256)], flow[(name + "_bf16", 1, FLOW_HID)]
             entry.update(ms_h256=wide["ms"], device_ms_h256=wide["device_ms"],
-                         bound_ms_h256=wide["bound_ms"], max_abs_err_h256=wide["max_abs_err"])
+                         bound_ms_h256=wide["bound_ms"], max_abs_err_h256=wide["max_abs_err"],
+                         ms_bf16_io=b16["ms"], max_abs_err_bf16_io=b16["max_abs_err"],
+                         rel_rms_err_bf16_io=b16["rel_err"])
         kernels.append(entry)
     train, vc = stft["train 16 x 4 s"], stft["vc 1 x 10.08 s"]
     kernels.append(

@@ -4,7 +4,10 @@ MultiPeriodDiscriminator (periods 2, 3, 5: the scale head + three period
 heads, one of them padding T) and MultiScaleDiscriminator (5 scales) on
 shared random weights, JAX with its TPU rewrites on (im2col_first,
 time_fold) and the port's plain convs. Every logit and every feature map
-is compared. float32 on the CPU: atol 1e-4 x the tensor's largest value,
+is compared. PitchDiscriminator as tests/test_aux_modules.py builds it
+(n_scales=3, [2, 100, 1] contours), its weights carried by
+params_from_jax: logits, feature maps, and the gradient of an LS-GAN loss
+with respect to the generated contour. float32 on the CPU: atol 1e-4 x the tensor's largest value,
 rtol 1e-4 (chains of up to 7 convs with 1024 channels).
 """
 
@@ -15,12 +18,13 @@ import pytest
 import torch
 
 from vcvits_tpu.models.discriminators import (
-    MultiPeriodDiscriminator as JaxMPD, MultiScaleDiscriminator as JaxMSD)
+    MultiPeriodDiscriminator as JaxMPD, MultiScaleDiscriminator as JaxMSD,
+    PitchDiscriminator as JaxPitchD)
 from vcvits_tpu.models.layers import (
     Conv1d as JaxConv1d, Conv2dNorm as JaxConv2dNorm, spectral_normalize as jax_sn)
 from vcvits_tpu_torch.convert.from_jax import disc_params_from_jax, params_from_jax
 from vcvits_tpu_torch.models.discriminators import (
-    Discriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator)
+    Discriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator, PitchDiscriminator)
 from vcvits_tpu_torch.models.layers import Conv1d, Conv2dNorm, spectral_normalize
 
 torch.set_num_threads(1)
@@ -104,3 +108,46 @@ def test_norm_convs_match_jax(norm):
                      spectral_norm=sn)
     tc2.load_state_dict(params_from_jax(p2))
     _close(tc2(torch.from_numpy(x2)), jc2.apply({"params": p2}, x2))
+
+
+@pytest.fixture(scope="module")
+def pitch_pair():
+    rng = np.random.default_rng(7)
+    y = rng.standard_normal((2, 100, 1)).astype(np.float32)
+    y_hat = rng.standard_normal((2, 100, 1)).astype(np.float32)
+    jd = JaxPitchD(n_scales=3)
+    params = _random(jd, y, y_hat, seed=8)
+    port = PitchDiscriminator(n_scales=3)
+    port.load_state_dict(params_from_jax(params))
+    return y, y_hat, jd, params, port
+
+
+def test_pitch_discriminator_matches_jax(pitch_pair):
+    y, y_hat, jd, params, port = pitch_pair
+    ref = jax.jit(lambda p: jd.apply({"params": p}, y, y_hat))(params)
+    with torch.no_grad():
+        got = port(torch.from_numpy(y), torch.from_numpy(y_hat))
+    for g_list, r_list in zip(got[:2], ref[:2]):
+        assert len(g_list) == len(r_list) == 3
+        for g, r in zip(g_list, r_list):
+            _close(g, r)
+    for g_heads, r_heads in zip(got[2:], ref[2:]):
+        for g_maps, r_maps in zip(g_heads, r_heads):
+            assert len(g_maps) == len(r_maps) == 5
+            for g, r in zip(g_maps, r_maps):
+                _close(g, r)
+
+
+def test_pitch_discriminator_gradient_matches_jax(pitch_pair):
+    """d/d y_hat of sum_i mean((1 - D_i(y))^2) + mean(D_i(y_hat)^2)."""
+    y, y_hat, jd, params, port = pitch_pair
+
+    def loss(yh):
+        lr, lg, _, _ = jd.apply({"params": params}, y, yh)
+        return sum(jnp.mean((1.0 - a) ** 2) for a in lr) + sum(jnp.mean(a ** 2) for a in lg)
+
+    ref = jax.jit(jax.grad(loss))(y_hat)
+    yh = torch.from_numpy(y_hat).requires_grad_(True)
+    lr, lg, _, _ = port(torch.from_numpy(y), yh)
+    (sum(torch.mean((1.0 - a) ** 2) for a in lr) + sum(torch.mean(a ** 2) for a in lg)).backward()
+    _close(yh.grad, ref)

@@ -177,6 +177,7 @@ def test_config_loads_like_jax(name):
 def test_cuda_sources_are_package_data():
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
-    assert set(data["vcvits_tpu_torch"]) == {"csrc/*.cu", "csrc/*.cuh"}
+    assert set(data["vcvits_tpu_torch"]) == {"csrc/*.cu", "csrc/*.cuh", "csrc/*.cc"}
     for name in _build.KERNEL_SOURCES:
         assert os.path.exists(os.path.join(PKG, "csrc", f"{name}.cu"))
+    assert os.path.exists(os.path.join(PKG, "csrc", "host_dsp.cc"))

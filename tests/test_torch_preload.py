@@ -6,6 +6,10 @@
   and features within tests/test_torch_hubert.py's tolerance (atol 1e-4,
   rtol 1e-3: float32 sums in another order through the STFT -> iSTFT
   smoothing and the transformer).
+* In the compute dtype: a bf16 dump (the dtype given, or a bf16 module's
+  own) == JAX's bf16 dump (`dtype=jnp.bfloat16`, what `fp16_run` selects)
+  to 2e-2 of the largest feature (measured 7.9e-3; JAX's own bf16 dump
+  is 7.0e-3 from its float32 one), and away from the float32 dump.
 * `sample_shift` draws JAX's shift for every (seed, epoch, index).
 * A missing dump raises FileNotFoundError.
 * One `TrainStep` on a preload batch (the port's dataset and collate,
@@ -93,6 +97,33 @@ def test_dumps_match_jax(setup):
     # nothing left to dump
     assert dump_hubert_features(VoiceConversionDataset(fl, cfg.data, cache_dir=str(tmp / "port")),
                                 cfg, HubertModel(HubertConfig(**TINY_HUBERT)), device="cpu") == 0
+
+
+def test_dump_in_the_compute_dtype_matches_jax(setup):
+    tmp, fl, cfg, jcfg, g_params, _, _ = setup
+    hub = JaxHubertConfig(**TINY_HUBERT)
+    jax_ds = JaxDataset(fl, jcfg.data, cache_dir=str(tmp / "jax_bf16"))
+    assert jax_dump(jax_ds, jcfg, g_params["enc_p"]["hubert"], hubert_cfg=hub, batch_size=2,
+                    dtype=jnp.bfloat16) == 4
+    weights = params_from_jax(g_params["enc_p"]["hubert"])
+    fp32 = HubertModel(HubertConfig(**TINY_HUBERT))
+    fp32.load_state_dict(weights)
+    bf16 = HubertModel(HubertConfig(**TINY_HUBERT), dtype=torch.bfloat16)
+    bf16.load_state_dict(weights)
+    for name, module, dtype in (("given", fp32, torch.bfloat16), ("own", bf16, None)):
+        ds = VoiceConversionDataset(fl, cfg.data, cache_dir=str(tmp / name))
+        assert dump_hubert_features(ds, cfg, module, batch_size=2, device="cpu",
+                                    dtype=dtype) == 4
+    ref = JaxPreload(fl, jcfg.data, cache_dir=str(tmp / "jax_bf16"))
+    f32 = PreloadVoiceConversionDataset(fl, cfg.data, cache_dir=str(tmp / "port"))
+    for name in ("given", "own"):
+        port = PreloadVoiceConversionDataset(fl, cfg.data, cache_dir=str(tmp / name))
+        for i in range(len(ref)):
+            got, want = port.get_item(i)["hubert_features"], ref.get_item(i)["hubert_features"]
+            assert got.dtype == np.float32
+            scale = np.abs(want).max()
+            np.testing.assert_allclose(got, want, atol=2e-2 * scale, rtol=0, err_msg=name)
+            assert np.abs(got - f32.get_item(i)["hubert_features"]).max() > 1e-3 * scale
 
 
 def test_sample_shift_matches_jax(setup):

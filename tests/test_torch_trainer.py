@@ -22,9 +22,11 @@ read what the logger hands it.
   the two mel images ([3, n_mels, frames]) and the two clips.
 * config.json is written, and `VoiceConverter.from_checkpoint` converts a
   file with the run's config.
-* `python -m vcvits_tpu_torch.cli.train` refuses what is not ported (bf16
-  by flag or by the config's fp16_run, multi-GPU, --hubert-ckpt), naming
-  the ROADMAP item, before it builds anything.
+* `python -m vcvits_tpu_torch.cli.train` trains in bf16 when the config
+  says `"fp16_run": true` (as both shipped configs do) or `--bf16` is
+  given, and honours `accumulate_grad_batches` (one k = 2 cycle: two
+  mini-steps, one update); it refuses what is not ported (multi-GPU,
+  --hubert-ckpt), naming the ROADMAP item, before it builds anything.
 """
 
 import os
@@ -268,9 +270,51 @@ def test_config_json_and_from_checkpoint(run, tmp_path):
         assert torch.equal(v, saved["gen"][k]), k
 
 
+@pytest.mark.parametrize("extra,fp16_run,k,max_steps", [
+    ([], True, 1, 1), (["--bf16"], False, 2, 2)])
+def test_cli_trains_bf16_and_accumulates(run, tmp_path, monkeypatch, extra, fp16_run, k,
+                                         max_steps):
+    """cli.main on the CPU: bf16 from the config's fp16_run or from --bf16,
+    `max_steps` mini-steps, one update per k of them, a checkpoint at the
+    end. The tiny HuBERT stands in for HuBERT-base (the CLI builds the
+    trainer with the configuration's default)."""
+    import json
+
+    from vcvits_tpu_torch.cli import train as cli
+    from vcvits_tpu_torch.models import synthesizer
+    from vcvits_tpu_torch.train import trainer as trainer_mod
+
+    tmp, fl, _, _, _ = run
+    built = []
+
+    class Recorded(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(synthesizer, "hubert_config_for", lambda channels: HUB)
+    monkeypatch.setattr(trainer_mod, "Trainer", Recorded)
+    cfg = _cfg(tmp, fl, fp16_run=fp16_run)
+    cfg["trainer"] = {"accumulate_grad_batches": k}
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(cfg))
+    workdir = tmp_path / "logs"
+    cli.main(["-c", str(cfg_path), "-a", "cpu", "-s", "--workdir", str(workdir),
+              "--max-steps", str(max_steps), *extra])
+    (trainer,) = built
+    step = trainer.train_step
+    assert trainer.dtype == step.dtype == torch.bfloat16
+    assert step.gen.dtype == torch.bfloat16
+    assert (step.step, step.updates, step.mini_step) == (max_steps, max_steps // k, 0)
+    assert {float(s["step"]) for s in step.g_opt.state.values()} == {float(max_steps // k)}
+    saved = CheckpointManager(str(workdir / "checkpoints")).restore()
+    assert saved["step"] == max_steps and saved["accum"]["updates"] == max_steps // k
+    assert all(v.dtype == torch.float32 for v in saved["gen"].values())
+
+
 @pytest.mark.parametrize("extra,fp16_run", [
-    (["--bf16"], False), ([], True), (["--model-parallel", "2"], False),
-    (["--distributed"], False), (["--hubert-ckpt", "hubert.pt"], False)])
+    (["--model-parallel", "2"], False), (["--distributed"], False),
+    (["--hubert-ckpt", "hubert.pt"], False)])
 def test_cli_refuses_what_is_not_ported(run, tmp_path, extra, fp16_run):
     import json
 

@@ -11,7 +11,17 @@ The package imports no JAX and nothing of vcvits_tpu.
 __version__ = "0.1.0"
 
 from vcvits_tpu_torch.config import Config, load_config  # noqa: E402
-from vcvits_tpu_torch.infer import VoiceConverter  # noqa: E402
-from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC  # noqa: E402
 
 __all__ = ["Config", "SynthesizerSVC", "VoiceConverter", "load_config"]
+
+
+def __getattr__(name: str):
+    """`VoiceConverter` and `SynthesizerSVC` on first use: importing the
+    package (as the data pipeline's worker processes do) loads no torch."""
+    if name == "VoiceConverter":
+        from vcvits_tpu_torch.infer import VoiceConverter
+        return VoiceConverter
+    if name == "SynthesizerSVC":
+        from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+        return SynthesizerSVC
+    raise AttributeError(f"module 'vcvits_tpu_torch' has no attribute {name!r}")

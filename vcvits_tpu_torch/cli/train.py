@@ -4,9 +4,12 @@
 
 Loads the JSON config, warms the dataset caches (skip with -s), optionally
 dumps precomputed HuBERT features (--preload / --preload-dump), and trains
-on the card with the auto-resume of train/trainer.py. float32 only: a
-config with "fp16_run": true, --bf16, --model-parallel > 1, --distributed
-and --hubert-ckpt raise NotImplementedError until their slices are ported.
+on the card with the auto-resume of train/trainer.py. `"fp16_run": true`
+(both shipped configs) or --bf16 computes in bfloat16, float32 otherwise;
+`trainer.accumulate_grad_batches` mini-steps make an update. What stays
+float32 (the targets, the mel loss, the optimizer) runs with TF32 off.
+--model-parallel > 1, --distributed and --hubert-ckpt raise
+NotImplementedError until their slices are ported.
 """
 
 from __future__ import annotations
@@ -40,13 +43,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--preload-shift-aug", action="store_true",
                    help="random +-12 semitone source shift with p=0.7 per epoch item; with "
                         "--preload-dump, dump all 25 shift variants")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bfloat16 (also selected by \"fp16_run\": true)")
     # not ported yet: each raises
-    p.add_argument("--bf16", action="store_true", help="not ported (ROADMAP Queue 1 item 2)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported above 1 (ROADMAP Queue 1 item 9)")
+                   help="not ported above 1 (ROADMAP Queue 1 item 6)")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 9)")
-    p.add_argument("--hubert-ckpt", default=None, help="not ported (ROADMAP Queue 1 item 10)")
+                   help="not ported (ROADMAP Queue 1 item 6)")
+    p.add_argument("--hubert-ckpt", default=None, help="not ported (ROADMAP Queue 1 item 7)")
     return p.parse_args(argv)
 
 
@@ -62,14 +66,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     from vcvits_tpu_torch.utils.provenance import check_git_hash, get_logger
 
     cfg = load_config(args.config)
-    if args.bf16 or cfg.train.fp16_run:
-        raise NotImplementedError("bf16 training is not ported (ROADMAP Queue 1 item 2); "
-                                  "set \"fp16_run\": false in the config to train in float32")
     if args.model_parallel > 1 or args.distributed:
-        raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 6)")
     if args.hubert_ckpt:
         raise NotImplementedError("--hubert-ckpt (fairseq HuBERT conversion) is not ported "
-                                  "(ROADMAP Queue 1 item 10)")
+                                  "(ROADMAP Queue 1 item 7)")
+    dtype = torch.bfloat16 if (args.bf16 or cfg.train.fp16_run) else torch.float32
     if args.batch_size:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  batch_size=args.batch_size))
@@ -77,7 +79,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 cache_dir=args.cachedir))
     # float32 means float32: TF32 off in cuDNN's convolutions (PyTorch's
-    # default is on) and in matmuls, as JAX's HIGHEST precision for fp32
+    # default is on) and in matmuls, as JAX's HIGHEST precision for fp32;
+    # in a bf16 run this holds for what stays float32 (the targets, the
+    # mel loss, the optimizer)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -92,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     from vcvits_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, workdir=args.workdir, device=args.accelerator, preload=args.preload,
-                      preload_shift_aug=args.preload_shift_aug)
+                      preload_shift_aug=args.preload_shift_aug, dtype=dtype)
     if args.preload or args.preload_dump:
         from vcvits_tpu_torch.data.preload import SHIFT_SET, dump_hubert_features
 
@@ -104,7 +108,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 else (0,)
             n = dump_hubert_features(VoiceConversionDataset(f, cfg.data), cfg,
                                      trainer.train_step.gen.enc_p.hubert, pitch_shifts=shifts,
-                                     device=trainer.device)
+                                     device=trainer.device, dtype=dtype)
             logging.info("dumped %d HuBERT feature files for %s", n, f)
         if args.preload_dump:
             return

@@ -9,7 +9,8 @@ for the discriminators' {"mpd": ..., "msd": ...} tree, for the port's
 `Discriminators` (models/discriminators.py). `train_state_from_jax(state,
 cfg)` turns a whole JAX `GANTrainState` (numpy leaves) into the port's
 checkpoint content (`TrainStep.state_dict()`), Adam moments included, so a
-run started in JAX resumes in the port. It imports no JAX and no optax.
+run started in JAX resumes in the port; a state with gradient accumulation
+(`optax.MultiSteps`) carries its accumulator over as well. It imports no JAX and no optax.
 The rules, by leaf name:
 
 * flax `Dense.kernel` [in, out]       -> `weight` [out, in]   (kernel.T)
@@ -104,11 +105,15 @@ def disc_params_from_jax(d_params: Mapping) -> Dict[str, torch.Tensor]:
     return _convert_tree(d_params)
 
 
-def _adam_state(opt_state: Any) -> Optional[Dict[str, Any]]:
-    """{"count", "mu", "nu"} of the ScaleByAdamState inside an optax state.
-    Namedtuples are walked by their field names, tuples in order (optax's
-    chain) and mappings by key (an Orbax step restored as numpy), so no
-    optax import is needed."""
+_MULTI_STEPS = {"mini_step", "gradient_step", "inner_opt_state", "acc_grads"}
+
+
+def _find_state(opt_state: Any, fields) -> Optional[Dict[str, Any]]:
+    """The first node of an optax state that has every field of `fields`, as
+    a dict. Namedtuples are walked by their field names, tuples in order
+    (optax's chain) and mappings by key (an Orbax step restored as numpy),
+    so no optax import is needed. A MultiStepsState's `acc_grads`, a tree
+    shaped like the parameters, is not searched."""
     if hasattr(opt_state, "_fields"):
         node = {f: getattr(opt_state, f) for f in opt_state._fields}
     elif isinstance(opt_state, Mapping):
@@ -117,13 +122,21 @@ def _adam_state(opt_state: Any) -> Optional[Dict[str, Any]]:
         node = dict(enumerate(opt_state))
     else:
         return None
-    if {"count", "mu", "nu"} <= set(node):
+    if set(fields) <= set(node):
         return node
-    for child in node.values():
-        found = _adam_state(child)
+    for key, child in node.items():
+        if key == "acc_grads" and _MULTI_STEPS <= set(node):
+            continue
+        found = _find_state(child, fields)
         if found is not None:
             return found
     return None
+
+
+def _adam_state(opt_state: Any) -> Optional[Dict[str, Any]]:
+    """{"count", "mu", "nu"} of the ScaleByAdamState inside an optax state
+    (inside a MultiStepsState, its `inner_opt_state`'s)."""
+    return _find_state(opt_state, ("count", "mu", "nu"))
 
 
 def _arrays_only(tree: Mapping) -> Dict:
@@ -152,16 +165,34 @@ def _moments(opt_state: Any, convert) -> Dict[str, Dict[str, torch.Tensor]]:
             for name in mu}
 
 
+def _accumulator(step: int, g_opt_state: Any, d_opt_state: Any) -> Dict[str, Any]:
+    """The port's "accum" entry: from optax.MultiSteps' states (mini_step,
+    gradient_step as the update count, acc_grads as the running means),
+    or, without accumulation, none pending and one update a step."""
+    g_ms, d_ms = (_find_state(s, tuple(_MULTI_STEPS)) for s in (g_opt_state, d_opt_state))
+    if g_ms is None or d_ms is None:
+        return {"mini_step": 0, "updates": step, "g": {}, "d": {}}
+    return {"mini_step": int(np.asarray(g_ms["mini_step"])),
+            "updates": int(np.asarray(g_ms["gradient_step"])),
+            "g": _convert_tree(_arrays_only(g_ms["acc_grads"])),
+            "d": _convert_tree(_arrays_only(d_ms["acc_grads"]))}
+
+
 def train_state_from_jax(state: Any, cfg: Optional[Config] = None) -> Dict[str, Any]:
     """A JAX GANTrainState with numpy leaves (`jax.tree.map(np.asarray,
     state)`, or an Orbax step restored as numpy) -> the port's checkpoint
-    content: {"step", "gen", "disc", "g_opt", "d_opt"}, the layout of
-    `TrainStep.state_dict()`. optax's mu / nu / count become AdamW's
+    content: {"step", "gen", "disc", "g_opt", "d_opt", "accum"}, the layout
+    of `TrainStep.state_dict()`. optax's mu / nu / count become AdamW's
     exp_avg / exp_avg_sq / step; HuBERT, masked out of optax, has none.
-    With `cfg`, the generator is checked against that configuration."""
+    Under gradient accumulation the Adam state is MultiSteps'
+    `inner_opt_state`, and mini_step, gradient_step and acc_grads become
+    the accumulator. With `cfg`, the generator is checked against that
+    configuration."""
     get = (lambda k: state[k]) if isinstance(state, Mapping) else (lambda k: getattr(state, k))
-    return {"step": int(np.asarray(get("step"))),
+    step = int(np.asarray(get("step")))
+    return {"step": step,
             "gen": params_from_jax(get("g_params"), cfg),
             "disc": disc_params_from_jax(get("d_params")),
             "g_opt": _moments(get("g_opt_state"), _convert_tree),
-            "d_opt": _moments(get("d_opt_state"), _convert_tree)}
+            "d_opt": _moments(get("d_opt_state"), _convert_tree),
+            "accum": _accumulator(step, get("g_opt_state"), get("d_opt_state"))}

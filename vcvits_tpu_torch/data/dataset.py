@@ -5,7 +5,9 @@ Per item: read the wav, resample it to the 16 kHz source and the 48 kHz
 target rates, pYIN the source and quantise the f0 to coarse bins. Each
 result is cached as `<md5 of its key>.npy` in the cache directory, under
 the same keys as the JAX package, so a cache written by either package is
-read by the other. Host-side NumPy only.
+read by the other. Host side only: the resampler and pYIN's Viterbi run
+in the port's C++ library, or with `plain_dsp=True` in their NumPy
+versions.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 
 from vcvits_tpu_torch.config import DataConfig
 from vcvits_tpu_torch.data.filelist import load_filelist
+from vcvits_tpu_torch.dsp import host_dsp
 from vcvits_tpu_torch.dsp.pitch import coarse_f0, estimate_pitch
 from vcvits_tpu_torch.dsp.pitch_shift import pitch_shift as shift_semitones
 from vcvits_tpu_torch.dsp.resample import resample
@@ -44,9 +47,10 @@ class VoiceConversionDataset:
     """Indexable host-side dataset; items are dicts of NumPy arrays."""
 
     def __init__(self, filelist_path: str, cfg: DataConfig, cache_dir: Optional[str] = None,
-                 shuffle_seed: Optional[int] = 1234):
+                 shuffle_seed: Optional[int] = 1234, plain_dsp: bool = False):
         self.items: List[Tuple[str, int]] = load_filelist(filelist_path)
         self.cfg = cfg
+        self.plain_dsp = plain_dsp
         self.cache_dir = cache_dir or cfg.cache_dir
         os.makedirs(self.cache_dir, exist_ok=True)
         if shuffle_seed is not None:
@@ -79,17 +83,19 @@ class VoiceConversionDataset:
 
         shift_tag = f"_ps{pitch_shift}" if pitch_shift else ""
 
+        plain = self.plain_dsp
+
         def source() -> np.ndarray:
-            wav = resample(load(), int(audio["sr"]), src_sr)
-            return shift_semitones(wav, src_sr, pitch_shift) if pitch_shift else wav
+            wav = resample(load(), int(audio["sr"]), src_sr, plain=plain)
+            return shift_semitones(wav, src_sr, pitch_shift, plain=plain) if pitch_shift else wav
 
         x_wav = self._cached(f"{path}_{src_sr}{shift_tag}", source)
         y_wav = self._cached(f"{path}_{tgt_sr}",
-                             lambda: resample(load(), int(audio["sr"]), tgt_sr))
+                             lambda: resample(load(), int(audio["sr"]), tgt_sr, plain=plain))
         pitch_key = f"{path}_{cfg.filter_length}_{cfg.win_length}_{cfg.num_pitch}_{src_sr}{shift_tag}"
         x_pitch = self._cached(pitch_key, lambda: coarse_f0(
             estimate_pitch(x_wav, sr=src_sr, n_fft=cfg.filter_length,
-                           win_length=cfg.win_length, hop_length=320),
+                           win_length=cfg.win_length, hop_length=320, plain=plain),
             f0_bin=cfg.num_pitch))
         return {"sid": np.int64(sid), "x_wav": x_wav, "x_pitch": x_pitch, "y_wav": y_wav}
 
@@ -109,6 +115,8 @@ def preprocess(dataset: VoiceConversionDataset, num_workers: int = 4,
     the resampler and pYIN hold the interpreter lock for much of their
     time, so threads would not run them in parallel)."""
     n = len(dataset)
+    if not dataset.plain_dsp:
+        host_dsp.library()  # build the C++ library once, before the workers load it
     if num_workers <= 1:
         for i in range(n):
             dataset.get_item(i)

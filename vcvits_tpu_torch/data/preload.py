@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from vcvits_tpu_torch.config import Config
 from vcvits_tpu_torch.data.collate import alignment_unit, bucket_lengths, pick_bucket
 from vcvits_tpu_torch.data.dataset import VoiceConversionDataset, hash_string, save_npy
+from vcvits_tpu_torch.models.hubert import HubertModel
 from vcvits_tpu_torch.utils.device import resolve_device
 
 #: The augmentation policy: with p=0.3 no shift, else uniform over [-12, 12]
@@ -91,21 +92,29 @@ class PreloadVoiceConversionDataset(VoiceConversionDataset):
 
 
 @torch.no_grad()
-def dump_hubert_features(dataset: VoiceConversionDataset, cfg: Config, hubert: torch.nn.Module,
+def dump_hubert_features(dataset: VoiceConversionDataset, cfg: Config, hubert: HubertModel,
                          batch_size: int = 8, smooth: bool = True, log_every: int = 50,
-                         pitch_shifts=(0,), device="cuda") -> int:
+                         pitch_shifts=(0,), device="cuda",
+                         dtype: Optional[torch.dtype] = None) -> int:
     """Compute and cache HuBERT features for every item of `dataset` and
     every shift in `pitch_shifts` (`SHIFT_SET` covers the augmentation
     policy, 25 variants a file). `hubert` is the frozen HubertModel, for
     example `SynthesizerSVC.enc_p.hubert`; it runs on `device` ("cuda" by
-    default; raises when no GPU is present unless device="cpu"). Files that
-    exist are skipped. Returns the number of files written."""
+    default; raises when no GPU is present unless device="cpu") in the
+    compute dtype `dtype` (the module's own by default; bfloat16 under
+    `fp16_run` when the trainer built it), as the train step runs it; the
+    features are stored as float32. Files that exist are skipped. Returns
+    the number of files written."""
     from vcvits_tpu_torch.models.content_encoder import HUBERT_PAD
     from vcvits_tpu_torch.train.audio_pipeline import smooth_source
 
     device = resolve_device(device)
     d = cfg.data
-    dtype = next(hubert.parameters()).dtype
+    dtype = hubert.dtype if dtype is None else dtype
+    if dtype != hubert.dtype:
+        weights = hubert.state_dict()
+        hubert = HubertModel(hubert.cfg, dtype=dtype)
+        hubert.load_state_dict(weights)
     hubert = hubert.to(device)
 
     def extract(wavs: np.ndarray) -> np.ndarray:

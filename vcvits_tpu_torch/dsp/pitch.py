@@ -1,12 +1,13 @@
 """F0 estimation (pYIN) and coarse pitch quantization, host-side NumPy.
 
-The port's copy of vcvits_tpu/dsp/pitch.py on its NumPy path: a vectorized
-implementation of pYIN (Mauch & Dixon 2014) with FFT-autocorrelation
-difference function, cumulative-mean-normalized difference, beta-prior
-thresholding with a Boltzmann trough prior, and a banded Viterbi decode over
-voiced/unvoiced pitch states. The port does not load the JAX package's
-prebuilt C++ library, so the Viterbi decode is always the NumPy loop. It is
-not on the device path.
+The port's copy of vcvits_tpu/dsp/pitch.py: a vectorized implementation of
+pYIN (Mauch & Dixon 2014) with FFT-autocorrelation difference function,
+cumulative-mean-normalized difference, beta-prior thresholding with a
+Boltzmann trough prior, and a banded Viterbi decode over voiced/unvoiced
+pitch states. The decode runs in the port's C++ library
+(csrc/host_dsp.cc through dsp/host_dsp.py, built at first use; a failed
+build or load raises); the NumPy loop is its plain version, reached with
+`plain=True`. It is not on the device path.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 from scipy import stats as _stats
+
+from vcvits_tpu_torch.dsp import host_dsp
 
 # librosa.note_to_hz("C2") / ("C7") — the reference's pyin band (audio.py:38-39).
 C2_HZ = 65.40639132514966
@@ -84,6 +87,7 @@ def pyin(
     max_transition_rate: float = 35.92,
     switch_prob: float = 0.01,
     no_trough_prob: float = 0.01,
+    plain: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Probabilistic YIN. Returns (f0, voiced_flag, voiced_prob), NaN when unvoiced.
 
@@ -166,7 +170,7 @@ def pyin(
     log_switch = math.log(switch_prob)
     log_obs = np.log(obs + tiny)
 
-    states = _viterbi_decode(log_obs, n_pitch_bins, log_tri, log_stay, log_switch)
+    states = _viterbi_decode(log_obs, n_pitch_bins, log_tri, log_stay, log_switch, plain=plain)
 
     freq_of_bin = fmin * 2.0 ** (np.arange(n_pitch_bins) / (12.0 * n_bps))
     voiced_flag = states < n_pitch_bins
@@ -177,9 +181,12 @@ def pyin(
 
 def _viterbi_decode(
     log_obs: np.ndarray, n_pitch_bins: int, log_tri: np.ndarray,
-    log_stay: float, log_switch: float,
+    log_stay: float, log_switch: float, plain: bool = False,
 ) -> np.ndarray:
-    """Viterbi over the factorized (voicing x pitch-band) chain."""
+    """Viterbi over the factorized (voicing x pitch-band) chain: the C++
+    library's `hd_pyin_viterbi`, or with `plain=True` this NumPy loop."""
+    if not plain:
+        return host_dsp.pyin_viterbi(log_obs, n_pitch_bins, log_tri, log_stay, log_switch)
     n_frames = log_obs.shape[0]
     half = len(log_tri) // 2
     offsets = np.arange(-half, half + 1)
@@ -236,11 +243,13 @@ def estimate_pitch(
     n_fft: int,
     win_length: int,
     hop_length: int = 320,
+    plain: bool = False,
 ) -> np.ndarray:
     """Reference audio.py:24-63: reflect-pad (n_fft-hop)/2, pyin, NaN->0.
 
     Returns f0 in Hz, [num_frames] float32 with num_frames = len(audio)//hop
     (for len % hop == 0) — aligned 1:1 with HuBERT's 50 Hz frames.
+    `plain=True` decodes with the NumPy Viterbi instead of the C++ one.
     """
     audio = np.asarray(audio, dtype=np.float64).reshape(-1)
     pad = int((n_fft - hop_length) / 2)
@@ -253,6 +262,7 @@ def estimate_pitch(
         frame_length=win_length,
         win_length=win_length // 2,
         hop_length=hop_length,
+        plain=plain,
     )
     return np.nan_to_num(f0, nan=0.0).astype(np.float32)
 

@@ -59,9 +59,11 @@ def _phase_vocoder(spec: np.ndarray, rate: float, hop: int, n_fft: int) -> np.nd
 
 
 def pitch_shift(
-    y: np.ndarray, sr: int, n_steps: float, bins_per_octave: int = 12, n_fft: int = 512
+    y: np.ndarray, sr: int, n_steps: float, bins_per_octave: int = 12, n_fft: int = 512,
+    plain: bool = False,
 ) -> np.ndarray:
-    """Shift pitch by n_steps semitones, preserving duration and rate."""
+    """Shift pitch by n_steps semitones, preserving duration and rate;
+    `plain=True` resamples with the NumPy version."""
     if n_steps == 0:
         return np.asarray(y, dtype=np.float32)
     y = np.asarray(y, dtype=np.float64)
@@ -71,7 +73,7 @@ def pitch_shift(
     stretched = _phase_vocoder(spec, rate, hop, n_fft)
     wav = _istft(stretched, n_fft, hop)
     # stretched duration ~ len(y)/rate at rate sr -> resample to undo
-    shifted = resample(wav, int(round(sr / rate)), sr)
+    shifted = resample(wav, int(round(sr / rate)), sr, plain=plain)
     if len(shifted) < len(y):
         shifted = np.pad(shifted, (0, len(y) - len(shifted)))
     return shifted[: len(y)].astype(np.float32)

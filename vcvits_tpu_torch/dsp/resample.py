@@ -1,12 +1,15 @@
-"""Polyphase windowed-sinc resampler (host-side NumPy).
+"""Polyphase windowed-sinc resampler (host side).
 
-The port's copy of vcvits_tpu/dsp/resample.py on its NumPy path. The
-algorithm is torchaudio's Resample: gcd-reduced rate pair, Hann-windowed
-sinc kernel bank (lowpass_filter_width=6, rolloff=0.99), polyphase
-evaluation. Output length = ceil(T * new / orig).
+The port's copy of vcvits_tpu/dsp/resample.py. The algorithm is
+torchaudio's Resample: gcd-reduced rate pair, Hann-windowed sinc kernel
+bank (lowpass_filter_width=6, rolloff=0.99), polyphase evaluation. Output
+length = ceil(T * new / orig).
 
-Implemented as one frame-matmul: frames [n_blocks, K] @ kernels.T
-[K, up] -> interleave — BLAS does the work, no Python loop.
+`resample` runs the port's C++ library (csrc/host_dsp.cc through
+dsp/host_dsp.py, built at first use; a failed build or load raises), row
+by row. Its plain version, reached with `plain=True`, is NumPy: one frame
+matmul, frames [n_blocks, K] @ kernels.T [K, up] -> interleave. Both sum
+in float64; their outputs are bit-equal (tests/test_torch_host_dsp.py).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import math
 from typing import Tuple
 
 import numpy as np
+
+from vcvits_tpu_torch.dsp import host_dsp
 
 
 @functools.lru_cache(maxsize=32)
@@ -37,10 +42,16 @@ def _kernel_bank(
     return np.stack(kernels).astype(np.float64), width
 
 
-def resample(x: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
-    """[..., T] float -> [..., ceil(T*new/orig)] float32."""
+def resample(x: np.ndarray, orig_sr: int, new_sr: int, plain: bool = False) -> np.ndarray:
+    """[..., T] float -> [..., ceil(T*new/orig)] float32; `plain=True` runs
+    the NumPy version instead of the C++ one."""
     if orig_sr == new_sr:
         return np.asarray(x, dtype=np.float32)
+    # the samples as float32 in both versions, as the C interface takes them
+    x = np.asarray(x, dtype=np.float32)
+    if not plain:
+        rows = [host_dsp.resample(r, orig_sr, new_sr) for r in x.reshape(-1, x.shape[-1])]
+        return np.stack(rows).reshape(*x.shape[:-1], -1)
     g = math.gcd(orig_sr, new_sr)
     orig, new = orig_sr // g, new_sr // g
     kernels, width = _kernel_bank(orig, new)

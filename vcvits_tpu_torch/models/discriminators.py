@@ -10,7 +10,8 @@ and generated waveforms as one batch (JAX's batch_pair), which is exact.
 
 The JAX package's im2col_first, grouped_pack and time_fold flags are exact
 TPU rewrites of these convs: the port accepts them and computes the plain
-convs. `PitchDiscriminator` is not in the train step and is not ported.
+convs. `PitchDiscriminator` (the MSD pattern over F0 contours) is ported
+and, as in JAX, not in the train step.
 """
 
 from __future__ import annotations
@@ -156,6 +157,50 @@ class MultiScaleDiscriminator(nn.Module):
             if i != 0:
                 x = avg_pool_4_2(x)
             results.append(_paired(getattr(self, f"disc_{i}"), x, y.shape[0]))
+        return _collect(results)
+
+
+# (features, kernel, stride, groups, padding) of PitchDiscriminator's heads
+_PITCH_SPECS = ((16, 15, 1, 1, 7), (64, 15, 2, 4, 7), (128, 15, 2, 16, 7), (128, 5, 1, 1, 2))
+
+
+class PitchDiscriminator(nn.Module):
+    """Multi-scale discriminator over F0 contours, the counterpart of
+    vcvits_tpu/models/discriminators.py:PitchDiscriminator: `n_scales`
+    weight-normed heads of narrow grouped convs (`disc_{i}_conv_{j}`, then
+    `disc_{i}_post`), head i on the [real; generated] batch average-pooled
+    i times. Inputs [B, T_frames, 1] (normalised F0). Not wired into the
+    train step's losses, as in JAX. forward(y, y_hat) -> (logits_r,
+    logits_g, fmaps_r, fmaps_g)."""
+
+    def __init__(self, n_scales: int = 3, dtype=torch.float32):
+        super().__init__()
+        self.n_scales = n_scales
+        for i in range(n_scales):
+            cin = 1
+            for j, (f, k, s, g, p) in enumerate(_PITCH_SPECS):
+                self.add_module(f"disc_{i}_conv_{j}", Conv1d(
+                    cin, f, k, stride=s, groups=g, padding=(p, p), weight_norm=True, dtype=dtype))
+                cin = f
+            self.add_module(f"disc_{i}_post", Conv1d(cin, 1, 3, padding=(1, 1), weight_norm=True,
+                                                     dtype=dtype))
+
+    def _head(self, i: int, x: torch.Tensor) -> Tuple[torch.Tensor, FeatureMaps]:
+        fmap: FeatureMaps = []
+        for j in range(len(_PITCH_SPECS)):
+            x = leaky_relu(getattr(self, f"disc_{i}_conv_{j}")(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = getattr(self, f"disc_{i}_post")(x)
+        fmap.append(x)
+        return x.reshape(x.shape[0], -1), fmap
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor) -> Outputs:
+        x = torch.cat([y, y_hat.to(y.dtype)], dim=0)
+        results = []
+        for i in range(self.n_scales):
+            if i != 0:
+                x = avg_pool_4_2(x)
+            results.append(_paired(lambda h, i=i: self._head(i, h), x, y.shape[0]))
         return _collect(results)
 
 

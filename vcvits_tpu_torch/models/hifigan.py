@@ -7,10 +7,13 @@ summed then divided by their count), a final lrelu of slope 0.01,
 `conv_post` and tanh. With fused_mrf=True (inference: `infer`,
 `voice_conversion`) every stage's MRF goes through ops/mrf.py (kernel K1 on
 a CUDA tensor), on weights folded once; K1 has no backward. With
-fused_mrf=False (the training forward, as in JAX) every stage's MRF is
-K1's plain version, `mrf_plain`, on weights folded on each call with
-their graph, so the res blocks train. The caller chooses, as in JAX;
-nothing looks at requires_grad. The JAX package's space-to-depth tail folding and
+fused_mrf=False (the training forward) every res block runs as modules,
+its convs in the compute dtype with weight norm folded on each call with
+its graph, the blocks summed and divided by their count in that dtype:
+JAX's unfused ResBlock1 loop (vcvits_tpu/models/hifigan.py:56-80,
+:278-286), which is its training path, so the res blocks train and a
+bf16 step runs bf16 convolutions. The caller chooses, as in JAX; nothing
+looks at requires_grad. The JAX package's space-to-depth tail folding and
 dilation phase split are exact TPU rewrites of these convs and are not
 carried over; int8 and ResBlock2 are not ported and raise.
 """
@@ -24,7 +27,7 @@ from torch import nn
 
 from vcvits_tpu_torch.models.layers import (
     LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, leaky_relu)
-from vcvits_tpu_torch.ops.mrf import Block, mrf, mrf_plain
+from vcvits_tpu_torch.ops.mrf import Block, mrf
 
 
 class ResBlock1(nn.Module):
@@ -46,6 +49,15 @@ class ResBlock1(nn.Module):
         """This block alone, through ops/mrf.py (an MRF of one block)."""
         return mrf(x, [self.stacked_weights(self.dtype)], (self.kernel_size,),
                    (self.dilations,))
+
+    def module_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The block as differentiable modules in the compute dtype: per
+        dilation x += c2(lrelu(c1(lrelu(x))))."""
+        x = x.to(self.dtype)
+        for i in range(len(self.dilations)):
+            xt = getattr(self, f"c1_{i}")(leaky_relu(x, LRELU_SLOPE))
+            x = getattr(self, f"c2_{i}")(leaky_relu(xt, LRELU_SLOPE)) + x
+        return x
 
     def stacked_weights(self, dtype: torch.dtype) -> Block:
         """(w1 [D, k, C, C], b1 [D, C], w2, b2) in ops/mrf.py's layout, folded
@@ -97,23 +109,28 @@ class HiFiGANGenerator(FoldCache):
             ch = ch_out
         self.conv_post = Conv1d(ch, 1, 7, padding=(3, 3), weight_norm=True, dtype=dtype)
 
-    def _stacked(self) -> List[List[Block]]:
-        return [[getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
-                 for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)]
-
     def mrf_weights(self) -> List[List[Block]]:
         """Per stage, its blocks' weights in ops/mrf.py's layout, folded
         without a graph and cached."""
-        return self.folded(self._stacked)
+        return self.folded(lambda: [
+            [getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
+             for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)])
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
                 fused_mrf: bool = True) -> torch.Tensor:
         x = self.conv_pre(x)
         if g is not None and self.cond is not None:
             x = x + self.cond(g)[:, None, :]
-        stages, fuse = (self.mrf_weights(), mrf) if fused_mrf else (self._stacked(), mrf_plain)
+        stages = self.mrf_weights() if fused_mrf else None
+        n_blocks = len(self.kernel_sizes)
         for i in range(self.n_stages):
             x = getattr(self, f"up_{i}")(leaky_relu(x, LRELU_SLOPE)).contiguous()
-            x = fuse(x, stages[i], self.kernel_sizes, self.dilations)
+            if fused_mrf:
+                x = mrf(x, stages[i], self.kernel_sizes, self.dilations)
+                continue
+            xs = getattr(self, f"res_{i}_0").module_forward(x)
+            for j in range(1, n_blocks):
+                xs = xs + getattr(self, f"res_{i}_{j}").module_forward(x)
+            x = xs / n_blocks
         x = self.conv_post(leaky_relu(x, 0.01))  # torch's default slope, as in JAX
         return torch.tanh(x)

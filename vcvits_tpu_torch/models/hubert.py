@@ -155,6 +155,7 @@ class HubertModel(nn.Module):
     def __init__(self, cfg: HubertConfig = HUBERT_BASE, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         c = cfg
         self.feature_extractor = ConvFeatureExtractor(c, dtype=dtype)
         self.feat_ln = LayerNorm(c.conv_layers[-1][0], c.layer_norm_eps, dtype=dtype)

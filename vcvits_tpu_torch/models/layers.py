@@ -9,6 +9,11 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
   `g * v / ||v||` per call, the norm taken over every axis except the
   output channel (`Conv1d`) or the input channel (`ConvTranspose1d`, whose
   PyTorch weight is [in, out, k]).
+* A bfloat16 convolution on the CPU runs as a float32 convolution of the
+  bf16 operands, rounded to bf16 once (`conv_op`): the arithmetic of a
+  bf16 conv that accumulates in float32, and torch's CPU bf16 conv is
+  wrong at some shapes (kernel 8 or 128 with 4 or 8 channels a group, in
+  torch 2.13: errors as large as the outputs). On the card cuDNN runs it.
 * Every leaf module has `reset_parameters(generator)` mirroring the JAX
   package's initialiser for that parameter, so `init_weights(model, seed)`
   gives a seeded model with no checkpoint.
@@ -39,6 +44,16 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def conv_op(op, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], **kwargs
+            ) -> torch.Tensor:
+    """`op(x, w, b, **kwargs)` (F.conv1d, F.conv_transpose1d, F.conv2d); in
+    bfloat16 on the CPU as float32 on the bf16 operands, rounded once."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        y = op(x.float(), w.float(), None if b is None else b.float(), **kwargs)
+        return y.to(torch.bfloat16)
+    return op(x, w, b, **kwargs)
 
 
 def torch_same_padding(kernel_size: int, dilation: int = 1) -> Tuple[int, int]:
@@ -226,8 +241,8 @@ class Conv1d(_ConvBase):
         xt = x.to(dt).transpose(1, 2)
         if self.pad != (0, 0):
             xt = F.pad(xt, self.pad)
-        y = F.conv1d(xt, self.kernel().to(dt), b, stride=self.stride,
-                     dilation=self.dilation, groups=self.groups)
+        y = conv_op(F.conv1d, xt, self.kernel().to(dt), b, stride=self.stride,
+                    dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -252,8 +267,8 @@ class ConvTranspose1d(_ConvBase):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = self.bias.to(dt) if self.bias is not None else None
-        y = F.conv_transpose1d(x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
-                               stride=self.stride, padding=self.padding)
+        y = conv_op(F.conv_transpose1d, x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
+                    stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
 
 
@@ -280,7 +295,7 @@ class Conv2dNorm(_ConvBase):
         xt = x.to(dt).permute(0, 3, 1, 2)
         if any(self.pad):
             xt = F.pad(xt, self.pad)
-        y = F.conv2d(xt, self.kernel().to(dt), self.bias.to(dt), stride=self.strides)
+        y = conv_op(F.conv2d, xt, self.kernel().to(dt), self.bias.to(dt), stride=self.strides)
         return y.permute(0, 2, 3, 1)
 
 

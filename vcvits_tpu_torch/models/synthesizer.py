@@ -176,7 +176,7 @@ class SynthesizerSVC(nn.Module):
         if self.emb_g is None:
             raise ValueError("voice_conversion needs speaker embeddings (n_speakers >= 1)")
         g_src, g_tgt = self.emb_g(sid_src), self.emb_g(sid_tgt)
-        z, _, _, y_mask = self.enc_q(y_spec.to(self.dtype), y_spec_lengths, g=g_src, eps=eps,
+        z, _, _, y_mask = self.enc_q(y_spec, y_spec_lengths, g=g_src, eps=eps,
                                      generator=generator, fused_wn=True)
         z_p = self.flow.kernel_forward(z, y_mask, g=g_src)
         z_hat = self.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)

@@ -12,6 +12,9 @@ A library is rebuilt when it is missing or older than any source in
 them; `load(name)` builds on first use. ptxas's register and spill report
 is kept beside each library as `<name>.log`.
 
+The host library `csrc/host_dsp.cc` is built by the sibling
+`ops/_host_build.py`, which imports no torch.
+
 `LAUNCHES` counts kernel launches by kernel name: every wrapper adds one
 where it launches its kernel, and nowhere else. `device_guard` and
 `current_stream` are the wrappers' host path to a launch: no device switch

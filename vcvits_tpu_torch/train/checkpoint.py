@@ -3,14 +3,17 @@
 
 Each saved step is a directory `<directory>/<step>/` holding one file,
 `state.pt`: the step number, the generator's and discriminators' state
-dicts and both AdamW states (`TrainStep.state_dict()`). `save` copies the
+dicts, both AdamW states and the gradient accumulator (mini-step, update
+count, running-mean gradients; `TrainStep.state_dict()`). `save` copies the
 state from the device to the host at the step boundary, then writes the
 file on a background thread into a temporary directory that is renamed to
 `<step>` when the write is complete, and keeps the newest `max_to_keep`
 steps; `wait` joins the writer. `latest_step` sees only complete step
 directories. `restore_tolerant` keeps the fresh value of a tensor that is
 missing or has another shape, drops a tensor the template lacks, and resets
-both optimizers (and the step) if anything changed.
+both optimizers, the accumulator and the step if anything changed. A
+checkpoint written before the accumulator existed restores without one,
+and `TrainStep.load_state_dict` starts a fresh accumulator.
 """
 
 from __future__ import annotations
@@ -109,8 +112,8 @@ class CheckpointManager:
         """Restore into the shapes of `template` (a fresh
         `TrainStep.state_dict()`). A weight that is missing or has another
         shape keeps the template's value, one the template lacks is
-        dropped; if anything changed, the template's step and optimizer
-        states replace the saved ones. Returns (state, changed)."""
+        dropped; if anything changed, the template's step, optimizer states
+        and accumulator replace the saved ones. Returns (state, changed)."""
         raw = self.restore(step)
         changed = False
         merged = {}
@@ -137,5 +140,5 @@ class CheckpointManager:
             merged[side] = out
         if changed:
             return {"step": template["step"], **merged, "g_opt": template["g_opt"],
-                    "d_opt": template["d_opt"]}, True
+                    "d_opt": template["d_opt"], "accum": template.get("accum")}, True
         return {**raw, **merged}, False

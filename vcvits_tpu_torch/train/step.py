@@ -14,14 +14,30 @@ Counterpart of vcvits_tpu/train/step.py:make_train_step. One call of
    total = s_gen + s_fm + p_gen + p_fm + c_mel * mel-L1 + c_kl * KL.
    Backward, global grad norm, AdamW step.
 3. Discriminator: with `d_recompute_forward` (the default) the generator
-   forward runs again with the updated weights and fresh draws, no
+   forward runs again with the current weights and fresh draws, no
    gradient; then the LS-GAN loss of both discriminators, backward, grad
    norm, AdamW step.
+
+`dtype` is the compute dtype (`make_train_step(cfg, dtype=...)`): float32,
+or bfloat16 as `"fp16_run": true` selects. Parameters, gradients, AdamW
+and every loss stay float32; the casts are JAX's: the targets come from
+K3 on the float32 waveform and only `y_spec` goes to the compute dtype,
+as do the source wave and the shared HuBERT features (HuBERT runs in it);
+the generated slice's mel is taken of `o` in float32; the discriminators
+see the target segment in the compute dtype.
+
+With `accumulate_grad_batches` k > 1 (optax.MultiSteps in JAX) each call
+is a mini-step: the grad norms are this mini-batch's, its gradients go
+into a running mean (`train/state.GradAccumulator`), and only the k-th
+mini-step clips the mean and steps AdamW, at the learning rate of the
+number of real updates so far; the logged `learning_rate` is that of the
+mini-step count. On mini-steps 1 .. k-1 the parameters do not move, and
+the D half's recompute runs the unmoved generator.
 
 Every random draw is explicit: `StepDraws` injects the posterior noise and
 the segment starts of either forward (tests inject JAX's), and what is not
 injected comes from the step's generators. The metrics dict has the JAX
-step's keys, as 0-dim float32 tensors. Training runs in float32 here.
+step's keys, as 0-dim float32 tensors.
 """
 
 from __future__ import annotations
@@ -44,7 +60,8 @@ from vcvits_tpu_torch.train.audio_pipeline import smooth_source
 from vcvits_tpu_torch.train.losses import (
     discriminator_loss, feature_loss, generator_loss, kl_loss)
 from vcvits_tpu_torch.train.state import (
-    exponential_epoch_schedule, make_optimizer, trainable_parameters)
+    GradAccumulator, accumulate_and_step, exponential_epoch_schedule, make_optimizer,
+    trainable_parameters)
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import slice_segments
 
@@ -96,14 +113,6 @@ class _Sections:
             self.out[name] = self.out.get(name, 0.0) + a.elapsed_time(b)
 
 
-def _fill_missing_grads(params) -> None:
-    """A zero gradient where none arrived, so AdamW still applies its weight
-    decay, as optax does to every leaf."""
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-
-
 class TrainStep:
     """Generator, discriminators, their optimizers and the step function.
 
@@ -113,24 +122,32 @@ class TrainStep:
     disc_params_from_jax of the JAX package's trees). The learning rate
     decays once per epoch of `steps_per_epoch` steps; the config's
     `steps_per_epoch` overrides it, and 1000 is used where neither is set
-    (`train/state.resolve_steps_per_epoch`)."""
+    (`train/state.resolve_steps_per_epoch`). `dtype` is the compute dtype
+    (float32 or bfloat16); `cfg.trainer.accumulate_grad_batches` mini-steps
+    make an update.
+
+    `step` counts calls (mini-steps, JAX's `state.step`), `updates` the
+    AdamW steps taken, and `mini_step` the calls since the last update."""
 
     def __init__(self, cfg: Config, device="cuda",
                  hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
                  g_state: Optional[Mapping[str, torch.Tensor]] = None,
                  d_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32):
         device = resolve_device(device)
         if cfg.train.remat_policy != "none":
             raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
         self.cfg = cfg
         self.device = device
-        self.gen = SynthesizerSVC.from_config(cfg, device=device,
+        self.dtype = dtype
+        self.gen = SynthesizerSVC.from_config(cfg, dtype=dtype, device=device,
                                               seed=seed if g_state is None else None,
                                               hubert_cfg=hubert_cfg)
         if g_state is not None:
             self.gen.load_state_dict(g_state)
-        self.disc = Discriminators.from_config(cfg)
+        self.disc = Discriminators.from_config(cfg, dtype=dtype)
         if d_state is not None:
             self.disc.load_state_dict(d_state)
         else:
@@ -144,8 +161,13 @@ class TrainStep:
         self.d_params = list(self.disc.parameters())
         self.g_opt = make_optimizer(self.g_params, cfg)
         self.d_opt = make_optimizer(self.d_params, cfg)
+        k = cfg.trainer.accumulate_grad_batches
+        self.g_acc = GradAccumulator(self.g_params, k)
+        self.d_acc = GradAccumulator(self.d_params, k)
         self.set_steps_per_epoch(steps_per_epoch)
         self.step = 0
+        self.updates = 0
+        self.mini_step = 0
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
 
@@ -157,14 +179,23 @@ class TrainStep:
     def state_dict(self) -> Dict[str, object]:
         """The train state, as a checkpoint holds it: {"step", "gen" and
         "disc" (state dicts), "g_opt" and "d_opt" (AdamW's per-parameter
-        state, keyed by parameter name)}. Tensors are the live ones."""
+        state, keyed by parameter name), "accum" (the accumulator:
+        "mini_step", "updates", and G's and D's running-mean gradients "g"
+        and "d" by parameter name, empty when k == 1)}. Tensors are the
+        live ones."""
         return {"step": self.step, "gen": self.gen.state_dict(), "disc": self.disc.state_dict(),
                 "g_opt": self._opt_state(self.gen, self.g_opt),
-                "d_opt": self._opt_state(self.disc, self.d_opt)}
+                "d_opt": self._opt_state(self.disc, self.d_opt),
+                "accum": {"mini_step": self.mini_step, "updates": self.updates,
+                          "g": self.g_acc.state_dict(self._names(self.gen)),
+                          "d": self.d_acc.state_dict(self._names(self.disc))}}
 
     def load_state_dict(self, state: Mapping[str, object]) -> None:
         """Load a `state_dict()`-shaped state, tensors copied to the step's
-        device; a parameter missing from an optimizer's state starts fresh."""
+        device; a parameter missing from an optimizer's state starts fresh.
+        A state without "accum" (written before accumulation was ported,
+        always with k == 1, so one update a step) starts a fresh
+        accumulator at `updates` = `step`."""
         self.step = int(state["step"])
         self.gen.load_state_dict(state["gen"])
         self.disc.load_state_dict(state["disc"])
@@ -175,6 +206,15 @@ class TrainStep:
                 p = named[name]
                 opt.state[p] = {k: v.detach().to("cpu" if k == "step" else p.device, copy=True)
                                 for k, v in moments.items()}
+        accum = state.get("accum") or {"mini_step": 0, "updates": self.step, "g": {}, "d": {}}
+        self.mini_step = int(accum["mini_step"]) % self.g_acc.k
+        self.updates = int(accum["updates"])
+        self.g_acc.load_state_dict(accum["g"], self._names(self.gen))
+        self.d_acc.load_state_dict(accum["d"], self._names(self.disc))
+
+    @staticmethod
+    def _names(module: torch.nn.Module) -> Dict[int, str]:
+        return {id(p): name for name, p in module.named_parameters()}
 
     @staticmethod
     def _opt_state(module: torch.nn.Module, opt: torch.optim.Optimizer) -> Dict[str, Dict]:
@@ -182,8 +222,9 @@ class TrainStep:
                 if p in opt.state and opt.state[p]}
 
     def _features(self, batch: Batch):
-        """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen."""
-        d, t = self.cfg.data, self.cfg.train
+        """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen;
+        all but y_mel in the compute dtype."""
+        d, t, dt = self.cfg.data, self.cfg.train, self.dtype
         with torch.no_grad():
             hub = batch.get("hubert_features")
             if hub is not None:
@@ -192,11 +233,11 @@ class TrainStep:
                 x_wav = smooth_source(batch["x_wav"], d.filter_length, d.hop_length,
                                       d.win_length)
                 if t.share_frozen_hubert:
-                    hub = self.gen.enc_p.hubert(F.pad(x_wav, (HUBERT_PAD, HUBERT_PAD)))
+                    hub = self.gen.enc_p.hubert(F.pad(x_wav.to(dt), (HUBERT_PAD, HUBERT_PAD)))
             y_spec, y_mel = spectrogram_mel(batch["y_wav"], d.filter_length, d.n_mel_channels,
                                             d.target_sampling_rate, d.hop_length, d.win_length,
                                             d.mel_fmin, d.mel_fmax)
-        return x_wav, hub, y_spec, y_mel
+        return x_wav.to(dt), None if hub is None else hub.to(dt), y_spec.to(dt), y_mel
 
     def _gen_forward(self, batch: Batch, x_wav, hub, y_spec, eps, ids_str):
         return self.gen(x_wav, batch["x_wav_lengths"], batch["x_pitch"], y_spec,
@@ -206,14 +247,22 @@ class TrainStep:
                         dropout_generator=self.dropout_generator)
 
     def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
+        """The target's segment at `ids`, [B, segment, 1] in the compute dtype."""
         hop = self.cfg.data.hop_length
         return slice_segments(batch["y_wav"][:, :, None], ids * hop,
-                              self.cfg.train.segment_size)
+                              self.cfg.train.segment_size).to(self.dtype)
 
     def _mel_of(self, wav: torch.Tensor) -> torch.Tensor:
         d = self.cfg.data
         return mel_spectrogram(wav, d.filter_length, d.n_mel_channels, d.target_sampling_rate,
                                d.hop_length, d.win_length, d.mel_fmin, d.mel_fmax)
+
+    def _advance(self) -> None:
+        """Count the mini-step just taken (and the update, on the k-th)."""
+        if self.mini_step == self.g_acc.k - 1:
+            self.updates += 1
+        self.mini_step = (self.mini_step + 1) % self.g_acc.k
+        self.step += 1
 
     def _set_lr(self, lr: float) -> None:
         for opt in (self.g_opt, self.d_opt):
@@ -228,16 +277,16 @@ class TrainStep:
         (a dict) on the card, each section's device ms is added to it."""
         draws = draws or StepDraws()
         sections = _Sections(timings, self.device)
-        lr = self.schedule(self.step)
-        self._set_lr(lr)
+        # AdamW's schedule counts real updates, the logged rate mini-steps
+        self._set_lr(self.schedule(self.updates))
         feats = self._features(batch)
         sections.mark("features (smooth_source, HuBERT, K3)")
         g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
         d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
         sections.done()
-        self.step += 1
-        metrics = {"learning_rate": torch.tensor(lr, dtype=torch.float32),
+        metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
                    **g_metrics, **d_metrics}
+        self._advance()
         return {k: v.detach() for k, v in metrics.items()}
 
     def _generator_step(self, batch: Batch, feats, draws: StepDraws, sections: _Sections):
@@ -256,7 +305,7 @@ class TrainStep:
         loss_s_fm = feature_loss(s_fr, s_fg)
         loss_p_gen, _ = generator_loss(p_lg)
         loss_s_gen, _ = generator_loss(s_lg)
-        o_mel = self._mel_of(o[:, :, 0])
+        o_mel = self._mel_of(o[:, :, 0].float())
         y_mel_slice = slice_segments(y_mel, ids, t.segment_size // cfg.data.hop_length)
         loss_mel = torch.mean(torch.abs(o_mel - y_mel_slice)) * t.c_mel
         loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl
@@ -266,11 +315,8 @@ class TrainStep:
         loss_g.backward()
         sections.mark("G backward")
         self.disc.requires_grad_(True)
-        _fill_missing_grads(self.g_params)
         grad_norm_g = _grad_norm(self.g_params)
-        if t.grad_clip is not None:
-            torch.nn.utils.clip_grad_value_(self.g_params, t.grad_clip)
-        self.g_opt.step()
+        accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
         sections.mark("G grad norm + AdamW")
         metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
                    "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
@@ -302,11 +348,8 @@ class TrainStep:
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
         sections.mark("D backward")
-        _fill_missing_grads(self.d_params)
         grad_norm_d = _grad_norm(self.d_params)
-        if t.grad_clip is not None:
-            torch.nn.utils.clip_grad_value_(self.d_params, t.grad_clip)
-        self.d_opt.step()
+        accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, t.grad_clip)
         sections.mark("D grad norm + AdamW")
         metrics = {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d,
                    "loss/d/p": loss_p, "loss/d/s": loss_s}

@@ -8,8 +8,9 @@ precomputed HuBERT features), resumes from the latest checkpoint with the
 shape-tolerant restore, and runs `TrainStep` until `max_steps`, the
 `max_seconds` deadline, `request_stop()` or a SIGTERM/SIGINT, each of
 which ends at a step boundary with a checkpoint. `Trainer.validate` runs
-one validation batch through the generator's inference path (kernels K1
-and K2), takes the mel images of the generated and ground-truth clips and
+one validation batch through the generator's inference path in the
+compute dtype (kernels K1 and K2, bf16 weights and activations in a bf16
+run), takes the mel images of the generated and ground-truth clips and
 the objective metrics through K4, and logs them with the audio.
 
 Behaviours mirrored from the JAX trainer as they are: every `fit` reseeds
@@ -54,15 +55,20 @@ logger = logging.getLogger(__name__)
 class Trainer:
     def __init__(self, cfg: Config, workdir: str = "logs", device="cuda",
                  hubert_cfg: Optional[HubertConfig] = None, preload: bool = False,
-                 preload_shift_aug: bool = False, model_parallel: int = 1):
+                 preload_shift_aug: bool = False, model_parallel: int = 1,
+                 dtype: torch.dtype = torch.float32):
         """A trainer on `device` ("cuda" by default; raises when no GPU is
-        present unless device="cpu"), float32. Writes `config.json` into
-        `workdir`, beside `tb/` (TensorBoard) and `checkpoints/`.
-        `preload` trains from precomputed HuBERT features
+        present unless device="cpu") in the compute dtype `dtype` (float32
+        or bfloat16; parameters and optimizer stay float32), which
+        `validate`'s inference path runs in too. Steps are counted in
+        mini-steps (`accumulate_grad_batches` of them make an update), as
+        JAX's `state.step`: `max_steps` and every interval count them.
+        Writes `config.json` into `workdir`, beside `tb/` (TensorBoard) and
+        `checkpoints/`. `preload` trains from precomputed HuBERT features
         (data/preload.py); `preload_shift_aug` adds the per-epoch random
         source pitch shift."""
         if int(model_parallel) > 1:
-            raise NotImplementedError("model_parallel > 1 is not ported (ROADMAP Queue 1 item 9, "
+            raise NotImplementedError("model_parallel > 1 is not ported (ROADMAP Queue 1 item 6, "
                                       "multi-GPU)")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -74,8 +80,9 @@ class Trainer:
             json.dump(cfg.to_dict(), f, indent=1)
         self.tb = TensorBoardLogger(os.path.join(workdir, "tb"))
         self.ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+        self.dtype = dtype
         self.train_step = TrainStep(cfg, device=self.device, hubert_cfg=hubert_cfg,
-                                    seed=cfg.train.seed)
+                                    seed=cfg.train.seed, dtype=dtype)
         # the schedule's epoch length: the config's, else the first fit's loader's
         self._steps_per_epoch: Optional[int] = cfg.train.steps_per_epoch
         # set by request_stop() or a signal handler, read at each step boundary
