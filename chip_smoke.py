@@ -59,6 +59,11 @@
      FFT, as for K3, and <=
      1e-6 against K3's mel on the same input; also torch.stft + one fbank
      matmul (library_ms), the ratios and the tiles as for K3.
+3b. Kernels at the serving daemon's largest batch, 16 rows: K1 on the four
+   decoder stages of 16 x 10 s ([16, 7440, 256] ... [16, 476160, 32]) in
+   fp32 and bf16, K2's reverse (4 couplings) on [16, 930, 128] with each
+   row's own length drawn from 186-930; each against its plain version at
+   the tolerances above, with its time, device time and bound at B = 16.
 4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
    with the plain path on the CPU, same weights and noise, and must agree
@@ -76,6 +81,37 @@
    is K2's epilogue), K2 reverse 4, forward 4 and wn_segment 4, K1 36. ms
    and real-time factor; a breakdown that also times the module paths the
    posterior and the flow forward no longer take.
+5b. Serving (`serving.py`), full widths, perturbed seeded weights (as path
+   A), fp32 then bf16: a ServingDaemon(max_batch=16, window_ms=25) fed by
+   16 client threads, each submitting 2 prepared requests in turn (2-10 s
+   from np.random.default_rng(0), speakers 3/77/411, noise_scale 0), the
+   launch counters set to 0 just before and read just after (K2 4 and K1 36
+   a batch); requests/s, seconds of audio per second, latency p50/p95/max,
+   mean batch and the batch-size histogram. Held: every output as long as
+   its solo convert_array, and in each batch the rows as long as the batch
+   within 1e-3 of their solo runs (bf16: error RMS <= 2e-2 x RMS, where a
+   batch's and a row's GEMMs round differently). Then 16 equal 10 s
+   requests as one batch, profiled (device busy, idle share), every row
+   held the same way; a lone request at noise_scale 1 equal to
+   convert_array with its seed (<= 1e-6; another seed is > 1e-3 away);
+   and, in fp32, one 10 s request per wire format: f16 and i16 within
+   2e-3 of f32, mu-law within 0.0225 |x| + 3e-3.
+5c. Streaming (`streaming.py`, `streaming_conv.py`), fp32 and bf16: one
+   10 s source pushed in 0.1 s pieces through the windowed and the
+   incremental StreamingConverter (chunk 2 s, context 0.16 s, noise 0):
+   compute ms per chunk (p50, max) against the chunk's audio, the time to
+   the first output, the length against its contract (incremental exact,
+   windowed within the crossfade), launches (windowed K2 4 and K1 36 a
+   window; incremental none: its flow and decoder are plain convs). Held:
+   StreamingFlowDecoder on 5 chunks of the source's z_p, after its delay,
+   within 1e-3 of the offline flow reverse (K2) + decoder (K1) (bf16:
+   error RMS <= 2e-2 x RMS).
+5d. HTTP (`serve_http` on 127.0.0.1, an ephemeral port, fp32): POST
+   /convert of a 10 s WAV equal to the daemon's output within PCM_24
+   rounding (1e-5); POST /stream chunked, windowed and incremental, f32
+   within 1e-4 of a direct StreamingConverter (twice: the second connection
+   takes the pooled session) and i16 within 2e-2 (PCM-16 both ways); GET
+   /stats; 400 on rate=8000; 503 from a server with no stream sessions.
 6. Path B (TrainStep), full widths: 5 steps at batch 16 of paired synthetic
    2-4 s clips (x_pitch from the known f0), segment 16384, in float32 and
    then in bfloat16 (what "fp16_run": true selects). Every loss finite;
@@ -119,7 +155,8 @@
    steps in bf16. Prints ms/step, the loader-wait share, ms per validate,
    the checkpoint's blocking ms, write seconds and size, restore seconds
    and peak memory.
-8. Prints the launches of each path (counters set to 0 just before each
+8. Prints the launches of each path (serve: the first round of both
+   dtypes; stream: the windowed runs) (counters set to 0 just before each
    path and read just after), a `kernels` JSON line, then, last, the
    result line {"ok": true, "device": {...}}.
 
@@ -164,6 +201,9 @@ PATH_A_PADDED = 483840  # a 10 s 48 kHz source padded to the 7680-sample unit
 GATE_SHAPE = (16, 375, 128)  # the train step's posterior WN: B, spectrogram frames, H
 N_TRAIN_STEPS = 5
 PATH_C_STEPS, PATH_C_RESUME_TO = 6, 8
+SERVE_BATCH, SERVE_WINDOW_MS = 16, 25.0  # the daemon's max_batch and latency window
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 2
+STREAM_CHUNK_S, STREAM_PIECE_S = 2.0, 0.1  # a 2 s chunk, pushed as a microphone would
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -433,15 +473,15 @@ def flow_phase(rng, dev, _build):
     return out
 
 
-def mrf_bound_ms(t: int, c: int, n_w: int, wdt):
-    """K1's least time for one stage [1, t, c]: bytes of x, the output and
-    the weights once; operations 2 * n_w * c^2 * t. bf16 at the tensor
+def mrf_bound_ms(t: int, c: int, n_w: int, wdt, b: int = 1):
+    """K1's least time for one stage [b, t, c]: bytes of x, the output and
+    the weights once; operations 2 * n_w * c^2 * t * b. bf16 at the tensor
     cores' bf16 rate; fp32 the lesser of the CUDA cores' fp32 FMAs and
     3xTF32 (three TF32 products per multiply-add) on the tensor cores.
     Returns (bound_ms, bound_by, cuda_core_ms, tf32x3_ms)."""
     isz = 4 if wdt == torch.float32 else 2
-    nbytes = 2 * t * c * isz + (n_w * c * c + 2 * 9 * c) * isz
-    flops = 2 * n_w * c * c * t
+    nbytes = 2 * b * t * c * isz + (n_w * c * c + 2 * 9 * c) * isz
+    flops = 2 * n_w * c * c * t * b
     if wdt == torch.bfloat16:
         return (*bound_ms(flops, nbytes, BF16_FLOPS), None, None)
     cores, cores_by = bound_ms(flops, nbytes, FP32_FLOPS)
@@ -1119,6 +1159,564 @@ def path_a_phase(dev, _build, card: str):
     return counts
 
 
+def batch_phase(rng, dev, _build):
+    """K1 and K2 at the serving daemon's largest batch, 16 rows: K1 on the
+    four decoder stages of 16 x 10 s ([16, 7440, 256] ... [16, 476160, 32])
+    with fp32 and bf16 weights, K2's reverse (4 couplings with flips) on
+    [16, 930, 128] with each row's own length drawn from 186-930; each
+    against its plain version at MRF_TOL / FLOW_TOL, with its time, device
+    time and bound at B = 16."""
+    from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage, mrf, mrf_plain
+
+    b = SERVE_BATCH
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    n_w = 2 * sum(k * len(d) for k, d in zip(ks, ds))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for wdt in (torch.float32, torch.bfloat16):
+        label = str(wdt)[6:]
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+        for t, c in STAGE_SHAPES:
+            x = torch.randn((b, t, c), generator=gen, device=dev).to(wdt)
+            blocks = [tuple(
+                torch.tensor(rng.standard_normal(s) * sc, dtype=torch.float32, device=dev)
+                .to(wdt).contiguous()
+                for s, sc in (((len(d), k, c, c), 1 / np.sqrt(k * c)), ((len(d), c), 0.1),
+                              ((len(d), k, c, c), 1 / np.sqrt(k * c)), ((len(d), c), 0.1)))
+                for k, d in zip(ks, ds)]
+            got = mrf(x, blocks, ks, ds)
+            ref = mrf_plain(x, blocks, ks, ds)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref, bf16=wdt == torch.bfloat16)
+            del ref
+            if not (rel <= MRF_TOL[wdt] and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"mrf B={b} C={c} T={t} {label}: max |err| {err:.3e}, "
+                                     f"relative {rel:.3e} > {MRF_TOL[wdt]}")
+            del got
+            kernel = lambda: mrf(x, blocks, ks, ds)  # noqa: E731
+            ms, launches = timed(kernel, _build, "mrf", reps=2)
+            if launches != launches_per_stage(ds):
+                raise AssertionError(f"mrf B={b}: {launches} launches a stage")
+            device_ms = kernel_device_ms(kernel, "mrf_pair_kernel", reps=2)
+            plain_ms = cuda_ms(lambda: mrf_plain(x, blocks, ks, ds), reps=1)
+            b_ms, b_by, _, _ = mrf_bound_ms(t, c, n_w, wdt, b=b)
+            print(f"mrf [{b},{t},{c}] {label}: kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) bound share "
+                  f"{b_ms / ms:.4f} (device {b_ms / device_ms:.4f}) launches={launches:g} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e}")
+            for key, v in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms)):
+                tot[key] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["bound_by"] = b_by
+            del x, blocks
+            torch.cuda.empty_cache()
+        print(f"mrf all 4 stages B={b} {label}: kernel_ms={tot['ms']:.4f} "
+              f"device_ms={tot['device_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} ({tot['ms'] / b:.4f} kernel ms a row; B=1 "
+              f"rows of the mrf phase above)")
+        out[("mrf", wdt)] = tot
+    t, c, h = FLOW_FRAMES, FLOW_CH, FLOW_HID
+    couplings = [flow_weights(rng, dev, c // 2, h) for _ in range(N_FLOWS)]
+    conds = [torch.tensor(rng.standard_normal((b, FLOW_LAYERS * 2 * h)) * 0.3,
+                          dtype=torch.float32, device=dev) for _ in range(N_FLOWS)]
+    lens = torch.tensor(rng.integers(FLOW_FRAMES // 5, FLOW_FRAMES + 1, b), device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()[..., None]
+    x = torch.randn((b, t, c), generator=gen, device=dev)
+
+    def chain(fn):
+        y = x
+        for w, cnd in zip(couplings, conds):
+            y = fn(torch.flip(y, dims=[-1]).contiguous(), mask, cnd, w)
+        return y
+
+    got, ref = chain(coupling_reverse), chain(coupling_reverse_plain)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    if not (rel <= FLOW_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"flow_coupling_reverse B={b} ragged: max |err| {err:.3e} = "
+                             f"{rel:.3e} x RMS > {FLOW_TOL}")
+    ms, launches = timed(lambda: chain(coupling_reverse), _build, "flow_coupling_reverse")
+    device_ms = kernel_device_ms(lambda: chain(coupling_reverse), "wn_stack_kernel")
+    plain_ms = cuda_ms(lambda: chain(coupling_reverse_plain))
+    b_ms, b_by, cores_ms, _ = flow_bounds("flow_coupling_reverse", b, t, c, h)
+    print(f"flow_coupling_reverse [{b},{t},{c}] hidden {h}, row lengths "
+          f"{int(lens.min())}-{int(lens.max())} x{N_FLOWS} launches fp32: kernel_ms={ms:.4f} "
+          f"device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+          f"3xTF32; CUDA-core fp32 {cores_ms:.4f}) bound share {b_ms / ms:.4f} (device "
+          f"{b_ms / device_ms:.4f}) launches={launches:g} max_abs_err={err:.3e} rel={rel:.3e}")
+    out["flow_coupling_reverse"] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                                    "bound_ms": b_ms, "max_abs_err": err}
+    return out
+
+
+def serve_sources(cfg, rng, seconds):
+    """Prepared sources for the daemon, one per entry of `seconds`: a
+    harmonic tone with a known f0 contour and breath noise at 16 kHz,
+    padded to the alignment unit, its pitch coarse_f0 of the known f0 (no
+    pYIN); (wav, pitch, true_len, speaker)."""
+    from vcvits_tpu_torch.data.collate import alignment_unit
+    from vcvits_tpu_torch.dsp.pitch import coarse_f0
+
+    sr, unit = cfg.data.source_sampling_rate, alignment_unit(cfg.data)
+    out = []
+    for i, secs in enumerate(seconds):
+        n = int(secs * sr)
+        t = np.arange(n) / sr
+        f0 = 110.0 * (1 + rng.random()) * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wav = sum(0.25 / (k + 1) * np.sin((k + 1) * phase) for k in range(6))
+        wav = wav + 0.01 * rng.standard_normal(n)
+        padded = -(-n // unit) * unit
+        frames = np.zeros(padded // 320)
+        frames[: -(-n // 320)] = f0[::320]
+        out.append((np.pad(wav, (0, padded - n)).astype(np.float32),
+                    coarse_f0(frames, f0_bin=cfg.data.num_pitch), n, SPEAKERS[i % len(SPEAKERS)]))
+    return out
+
+
+def recording_daemon(vc, **kw):
+    """A ServingDaemon that keeps every batch it gathers (`batches`), so the
+    checks know which requests rode together."""
+    from vcvits_tpu_torch.serving import ServingDaemon
+
+    class Recording(ServingDaemon):
+        def __init__(self, *args, **kwargs):
+            self.batches = []
+            super().__init__(*args, **kwargs)
+
+        def _gather(self):
+            batch = super()._gather()
+            if batch is not None:
+                self.batches.append(batch)
+            return batch
+
+    return Recording(vc, **kw)
+
+
+def close_to(got: np.ndarray, want: np.ndarray, bf16: bool):
+    """(max |err|, within the phase's bound): fp32 max |err| <= SLICE_ATOL;
+    bf16 (where rounding lands differently in a batch's and a row's GEMMs
+    and spreads through the net) error RMS <= 2e-2 x RMS."""
+    d = got - want
+    err = float(np.abs(d).max()) if len(d) else 0.0
+    if not bf16:
+        return err, err <= SLICE_ATOL
+    rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+    return err, float(np.sqrt(np.mean(d.astype(np.float64) ** 2))) <= MRF_TOL[torch.bfloat16] * rms
+
+
+def serve_phase(dev, _build, card: str, sd):
+    """The serving daemon at full widths, fp32 then bf16: 16 client threads
+    x 2 requests of 2-10 s, then 16 equal 10 s requests as one batch
+    (profiled), the wire formats and a lone request with noise."""
+    import collections
+    import threading
+
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage
+    from vcvits_tpu_torch.serving import ServingDaemon
+
+    cfg = load_config(CONFIG)
+    m = cfg.model
+    per_batch = {"flow_coupling_reverse": 4,
+                 "mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes)}
+    hop = cfg.data.hop_length
+    counts = dict.fromkeys(per_batch, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        label, bf16 = str(dtype)[6:], dtype == torch.bfloat16
+        vc = VoiceConverter(cfg, sd, dtype=dtype, device=dev)
+        rng = np.random.default_rng(0)
+        reqs = serve_sources(cfg, rng, rng.uniform(2.0, 10.0, SERVE_CLIENTS * SERVE_PER_CLIENT))
+        vc.convert_array(*reqs[0][:2], reqs[0][3], reqs[0][2], noise_scale=0.0)  # warm-up
+        with recording_daemon(vc, max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS) as daemon:
+            results, errors = [None] * len(reqs), []
+
+            def client(i):
+                try:
+                    for j in range(i * SERVE_PER_CLIENT, (i + 1) * SERVE_PER_CLIENT):
+                        w, p, n, sid = reqs[j]
+                        results[j] = daemon.submit(w, p, n, sid, noise_scale=0.0).result(
+                            timeout=600)
+                except Exception as e:  # noqa: BLE001 - raised below, in this thread
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t0
+            rose = {k: _build.LAUNCHES[k] for k in per_batch}
+            if errors or any(th.is_alive() for th in threads):
+                raise AssertionError(f"serve {label}: client errors {errors[:3]}")
+            stats, batches = daemon.stats(), list(daemon.batches)
+        expect = {k: v * len(batches) for k, v in per_batch.items()}
+        if rose != expect:
+            raise AssertionError(f"serve {label}: launches {rose} for {len(batches)} batches, "
+                                 f"expected {expect}")
+        for k, v in rose.items():
+            counts[k] += v
+        audio_s = sum(r[2] for r in reqs) / cfg.data.source_sampling_rate
+        hist = dict(sorted(collections.Counter(len(bt) for bt in batches).items()))
+        print(f"serve {label}: {len(reqs)} requests of 2-10 s from {SERVE_CLIENTS} client "
+              f"threads ({SERVE_PER_CLIENT} each, closed loop), max_batch {SERVE_BATCH}, window "
+              f"{SERVE_WINDOW_MS} ms: wall {wall:.3f} s, {len(reqs) / wall:.2f} requests/s, "
+              f"{audio_s / wall:.2f} s of audio per s; latency p50 {stats['latency_p50_ms']} ms, "
+              f"p95 {stats['latency_p95_ms']} ms, max {stats['latency_max_ms']} ms; mean batch "
+              f"{stats['mean_batch']}, batch sizes {hist}; launches {rose} on {card}")
+        # held: every length, and in each batch the rows as long as the batch
+        index = {id(r[0]): i for i, r in enumerate(reqs)}
+        solo = [vc.convert_array(w, p, sid, n, noise_scale=0.0) for w, p, n, sid in reqs]
+        worst = 0.0
+        for i, (out, want) in enumerate(zip(results, solo)):
+            if out.shape != want.shape or not np.isfinite(out).all():
+                raise AssertionError(f"serve {label} request {i}: {out.shape} samples, solo "
+                                     f"{want.shape}, or non-finite")
+        for bt in batches:
+            pad_len = max(len(r.wav16k) for r in bt)
+            for r in bt:
+                i = index[id(r.wav16k)]
+                if len(r.wav16k) == pad_len:
+                    err, ok = close_to(results[i], solo[i], bf16)
+                    worst = max(worst, err)
+                    if not ok:
+                        raise AssertionError(f"serve {label}: longest row {i} of a batch of "
+                                             f"{len(bt)} is {err:.3e} from its solo run")
+        print(f"serve {label}: every output as long as its solo convert_array; the longest "
+              f"rows of the {len(batches)} batches within max |err| {worst:.3e} of solo")
+        # 16 equal 10 s requests in one batch, profiled
+        eq = serve_sources(cfg, rng, [10.0] * SERVE_BATCH)
+        solo = [vc.convert_array(w, p, sid, n, noise_scale=0.0) for w, p, n, sid in eq]
+        with recording_daemon(vc, max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS) as daemon:
+            outs = []
+
+            def one_batch():
+                futs = [daemon.submit(w, p, n, sid, noise_scale=0.0) for w, p, n, sid in eq]
+                outs[:] = [f.result(timeout=600) for f in futs]
+
+            one_batch()  # warm-up at this shape
+            device_profile(one_batch, f"serve {label} one batch of {SERVE_BATCH} x 10 s", card)
+            sizes = [len(bt) for bt in daemon.batches]
+            t0 = time.perf_counter()
+            one_batch()
+            batch_wall = time.perf_counter() - t0
+        if sizes != [SERVE_BATCH, SERVE_BATCH]:
+            raise AssertionError(f"serve {label}: 16 requests at once made batches {sizes}")
+        worst = 0.0
+        for i, (out, want) in enumerate(zip(outs, solo)):
+            err, ok = close_to(out, want, bf16)
+            worst = max(worst, err)
+            if out.shape != want.shape or not ok:
+                raise AssertionError(f"serve {label}: row {i} of a batch of 16 equal requests "
+                                     f"is {err:.3e} from its solo run")
+        print(f"serve {label}: a batch of {SERVE_BATCH} x 10 s in {batch_wall * 1e3:.1f} ms "
+              f"wall ({SERVE_BATCH * 10 / batch_wall:.1f}x real time), every row within max "
+              f"|err| {worst:.3e} of its solo convert_array")
+        # a lone request at noise 1 equals convert_array with its seed
+        w, p, n, sid = eq[1]
+        with ServingDaemon(vc, max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS) as daemon:
+            lone = daemon.submit(w, p, n, sid, noise_scale=1.0, rng_seed=11).result(timeout=600)
+        want = vc.convert_array(w, p, sid, n, noise_scale=1.0, rng_seed=11)
+        other = vc.convert_array(w, p, sid, n, noise_scale=1.0, rng_seed=12)
+        err = float(np.abs(lone - want).max())
+        apart = float(np.abs(other - want).max())
+        if lone.shape != want.shape or err > 1e-6 or apart <= SLICE_ATOL:
+            raise AssertionError(f"serve {label}: a lone request at noise 1 is {err:.3e} from "
+                                 f"convert_array with its seed (another seed {apart:.3e})")
+        print(f"serve {label}: a lone request at noise_scale 1, seed 11, max |err| {err:.3e} "
+              f"from convert_array with that seed (seed 12 is {apart:.3e} away)")
+        if not bf16:
+            wire_formats(vc, eq[0], label)
+        del vc
+        torch.cuda.empty_cache()
+    return counts
+
+
+def wire_formats(vc, req, label: str) -> None:
+    """One 10 s request per wire format against the f32 wire: f16 and i16
+    within 2e-3, mu-law within 0.0225 |x| + 3e-3 (the JAX package's
+    bounds)."""
+    from vcvits_tpu_torch.serving import ServingDaemon
+
+    w, p, n, sid = req
+    outs = {}
+    for fmt in ("f32", "f16", "i16", "mulaw"):
+        with ServingDaemon(vc, max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS,
+                           transfer=fmt) as daemon:
+            outs[fmt] = daemon.submit(w, p, n, sid, noise_scale=0.0).result(timeout=600)
+    ref = outs["f32"]
+    notes = []
+    for fmt in ("f16", "i16", "mulaw"):
+        err = np.abs(outs[fmt] - ref)
+        bound = 0.0225 * np.abs(ref) + 3e-3 if fmt == "mulaw" else 2e-3
+        if outs[fmt].shape != ref.shape or not np.all(err <= bound):
+            raise AssertionError(f"serve {label} wire {fmt}: max excess over its bound "
+                                 f"{float(np.max(err - bound)):.3e}")
+        notes.append(f"{fmt} max |err| {float(err.max()):.3e}")
+    print(f"serve {label} wire formats against f32 (10 s, mean |y| "
+          f"{float(np.abs(ref).mean()):.3e}): " + ", ".join(notes))
+
+
+def streaming_phase(dev, _build, card: str, sd):
+    """StreamingConverter at full widths, fp32 and bf16: a 10 s source pushed
+    in 0.1 s pieces through the windowed and the incremental modes (chunk
+    2 s, context 0.16 s); then StreamingFlowDecoder's streamed output on the
+    same z_p against the offline flow reverse (K2) + decoder (K1)."""
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.ops.mrf import launches_per_stage
+    from vcvits_tpu_torch.streaming import StreamingConverter
+
+    cfg = load_config(CONFIG)
+    d, m = cfg.data, cfg.model
+    sr = d.source_sampling_rate
+    per_window = {"flow_coupling_reverse": 4,
+                  "mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes)}
+    counts = dict.fromkeys(per_window, 0)
+    wav, pitch, n, sid = serve_sources(cfg, np.random.default_rng(3), [10.0])[0]
+    src = wav[:n]
+    piece = int(STREAM_PIECE_S * sr)
+    for dtype in (torch.float32, torch.bfloat16):
+        label, bf16 = str(dtype)[6:], dtype == torch.bfloat16
+        vc = VoiceConverter(cfg, sd, dtype=dtype, device=dev)
+        for incremental in (False, True):
+            mode = "incremental" if incremental else "windowed"
+            t0 = time.perf_counter()
+            sc = StreamingConverter(vc, speaker_id=sid, chunk_seconds=STREAM_CHUNK_S,
+                                    context_seconds=0.16, noise_scale=0.0,
+                                    incremental=incremental)
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            list(sc.convert_stream([src[:sc.chunk + sc.ctx]]))  # warm-up, then a fresh stream
+            sc.reset()
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            chunk_ms, outs, first = [], [], None
+            for start in range(0, n, piece):
+                t0 = time.perf_counter()
+                got = list(sc.push(src[start:start + piece]))
+                dt = (time.perf_counter() - t0) * 1e3
+                if got:
+                    chunk_ms.append(dt)
+                    if first is None:
+                        first = (min(start + piece, n) / sr, dt)
+                outs += got
+            t0 = time.perf_counter()
+            outs += list(sc.flush())
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            rose = {k: _build.LAUNCHES[k] for k in per_window}
+            out = np.concatenate(outs)
+            windows = -(-n // sc.chunk)  # a window per chunk, the last in flush
+            if incremental:
+                expect_len = (n * d.target_sampling_rate // (sr * d.hop_length)) * d.hop_length
+                ok_len = len(out) == expect_len
+                expect_launch = dict.fromkeys(per_window, 0)  # plain convs, no kernel
+            else:
+                expect_len = 3 * n
+                ok_len = abs(len(out) - expect_len) <= sc.xfade + 3
+                expect_launch = {k: v * windows for k, v in per_window.items()}
+            if not ok_len or not np.isfinite(out).all() or rose != expect_launch:
+                raise AssertionError(f"stream {label} {mode}: {len(out)} samples (expected "
+                                     f"{expect_len}), launches {rose} (expected {expect_launch})")
+            if not incremental:
+                for k, v in rose.items():
+                    counts[k] += v
+            print(f"stream {label} {mode}: 10 s pushed in {STREAM_PIECE_S} s pieces, chunk "
+                  f"{sc.chunk / sr:.2f} s + context {sc.ctx / sr:.2f} s: compute per chunk p50 "
+                  f"{np.median(chunk_ms):.1f} ms, max {max(chunk_ms):.1f} ms against "
+                  f"{sc.chunk / sr * 1e3:.0f} ms of audio ({len(chunk_ms)} chunks, flush "
+                  f"{flush_ms:.1f} ms); first output after {first[0]:.2f} s of audio + "
+                  f"{first[1]:.1f} ms; {len(out)} samples (contract {expect_len}); set-up "
+                  f"{setup_ms:.1f} ms; launches {rose} on {card}")
+        streamed_vs_offline(vc, cfg, sid, wav, n, pitch, bf16, label)
+        del vc, sc
+        torch.cuda.empty_cache()
+    return counts
+
+
+def streamed_vs_offline(vc, cfg, speaker, wav, n, pitch, bf16, label):
+    """StreamingFlowDecoder (plain convs, chunk 2 s) against the offline flow
+    reverse (K2) + decoder (K1) on the same z_p: the prior mean of a 10 s
+    source, its first 5 chunks (900 frames)."""
+    from vcvits_tpu_torch.data.collate import alignment_unit
+    from vcvits_tpu_torch.streaming_conv import StreamingFlowDecoder
+
+    gen, dev, d = vc.gen, vc.device, cfg.data
+    unit = alignment_unit(d)
+    chunk = max(unit, int(round(STREAM_CHUNK_S * d.source_sampling_rate / unit)) * unit)
+    f = chunk * d.target_sampling_rate // (d.source_sampling_rate * d.hop_length)
+    with torch.no_grad():
+        _, _, (_, z_p, _, _) = gen.infer(
+            torch.as_tensor(wav, device=dev)[None], torch.tensor([n], device=dev),
+            torch.as_tensor(pitch, device=dev)[None], torch.tensor([speaker], device=dev),
+            noise_scale=0.0)
+    frames = f * 5  # 5 chunks of the 2 s stream
+    z_p = z_p[:, :frames].contiguous()
+    sid = torch.tensor([speaker], device=dev)
+    with torch.no_grad():
+        g = gen.emb_g(sid)
+        mask = torch.ones((1, frames, 1), dtype=z_p.dtype, device=dev)
+        z = gen.flow.kernel_reverse(z_p, mask, g=g).to(z_p.dtype) * mask
+        ref = gen.dec(z, g=g, fused_mrf=True)[0, :, 0].float().cpu().numpy()
+    t0 = time.perf_counter()
+    sfd = StreamingFlowDecoder(cfg.model, f, dtype=gen.dtype).bind(gen)
+    bind_ms = (time.perf_counter() - t0) * 1e3
+    state, pieces, step_ms = sfd.init_state(), [], []
+    gv = gen.emb_g.weight.detach()[sid]
+    for i in range(frames // f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, state = sfd.step(state, z_p[:, i * f:(i + 1) * f],
+                            gv)
+        pieces.append(y[0, :, 0].float().cpu().numpy())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    zeros = torch.zeros_like(z_p[:, :f])
+    for _ in range(sfd.flush_chunks()):
+        y, state = sfd.step(state, zeros, gv, total_frames=frames)
+        pieces.append(y[0, :, 0].float().cpu().numpy())
+    got = np.concatenate(pieces)[sfd.delay_samples:][:len(ref)]
+    err, ok = close_to(got, ref, bf16)
+    if len(got) != len(ref) or not ok or not np.isfinite(got).all():
+        raise AssertionError(f"stream {label}: StreamingFlowDecoder is {err:.3e} from the "
+                             f"offline flow + decoder (limit {SLICE_ATOL if not bf16 else 'bf16'})")
+    state_mb = sum(v.numel() * v.element_size() for k, v in state.items() if k != "__n") / 1e6
+    print(f"stream {label}: StreamingFlowDecoder on {frames} frames of z_p (chunks of "
+          f"{f}) against the offline flow reverse (K2) + decoder (K1): max "
+          f"|err| {err:.3e}, mean |y| {float(np.abs(ref).mean()):.3e}; delay "
+          f"{sfd.delay_samples} samples, state {state_mb:.2f} MB, bind {bind_ms:.1f} ms, step "
+          f"p50 {np.median(step_ms):.1f} ms")
+
+
+def http_phase(dev, _build, card: str, sd):
+    """serve_http on 127.0.0.1 (an ephemeral port) in a thread, fp32: POST
+    /convert of a 10 s WAV, POST /stream (chunked, f32 and i16, windowed and
+    incremental, a second connection on the pooled session), GET /stats,
+    400 on another input rate, and 503 from a server with no stream
+    sessions."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.serving import ServingDaemon, serve_http
+    from vcvits_tpu_torch.streaming import StreamingConverter
+    from vcvits_tpu_torch.utils.audio_io import read_wav, write_wav
+
+    cfg = load_config(CONFIG)
+    sr = cfg.data.source_sampling_rate
+    vc = VoiceConverter(cfg, sd, device=dev)
+    rng = np.random.default_rng(4)
+    wav10, _, n10, _ = serve_sources(cfg, rng, [10.0])[0]
+    wav4, _, n4, _ = serve_sources(cfg, rng, [4.0])[0]
+    src4 = wav4[:n4]
+
+    def stream_once(port, path, payload: bytes, piece=6400):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.putrequest("POST", path)
+            conn.putheader("Transfer-Encoding", "chunked")
+            conn.endheaders()
+            for i in range(0, len(payload), piece):
+                p = payload[i:i + piece]
+                conn.send(f"{len(p):x}\r\n".encode() + p + b"\r\n")
+            conn.send(b"0\r\n\r\n")
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def serve(daemon, sessions):
+        server = serve_http(daemon, host="127.0.0.1", port=0, max_stream_sessions=sessions)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return server, thread
+
+    def stop(server, thread):
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    notes = []
+    q = "sid=3&chunk_seconds=2.0&context_seconds=0.16&noise_scale=0"
+    with tempfile.TemporaryDirectory() as tmp, \
+            ServingDaemon(vc, max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS) as daemon:
+        path = os.path.join(tmp, "in.wav")
+        write_wav(path, wav10[:n10], sr, subtype="FLOAT")
+        wav, true_len, pitch = vc.prepare_source(path)
+        want = daemon.submit(wav, pitch, true_len, 3, noise_scale=0.0).result(timeout=600)
+        server, thread = serve(daemon, 1)
+        port = server.server_address[1]
+        try:
+            t0 = time.perf_counter()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/convert?sid=3&noise_scale=0",
+                                         data=open(path, "rb").read(), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, body = resp.status, resp.read()
+            convert_ms = (time.perf_counter() - t0) * 1e3
+            out_path = os.path.join(tmp, "out.wav")
+            with open(out_path, "wb") as f:
+                f.write(body)
+            out, out_sr = read_wav(out_path)
+            err = float(np.abs(out - want).max())
+            if status != 200 or out_sr != 48000 or out.shape != want.shape or err > 1e-5:
+                raise AssertionError(f"http /convert: status {status}, {out.shape} samples at "
+                                     f"{out_sr} Hz, {err:.3e} from the daemon's output")
+            notes.append(f"/convert 10 s {convert_ms:.1f} ms (host DSP included), max |err| "
+                         f"{err:.3e} from the daemon")
+            f32 = src4.astype("<f4").tobytes()
+            for incremental in (0, 1):
+                direct = StreamingConverter(vc, speaker_id=3, chunk_seconds=2.0,
+                                            context_seconds=0.16, noise_scale=0.0,
+                                            incremental=bool(incremental))
+                ref = np.concatenate(list(direct.convert_stream([src4])))
+                mode = "incremental" if incremental else "windowed"
+                stream_path = f"/stream?{q}&incremental={incremental}&format=f32"
+                for attempt in ("", ", pooled session again"):
+                    t0 = time.perf_counter()
+                    status, body = stream_once(port, stream_path, f32)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    got = np.frombuffer(body, dtype="<f4")
+                    err = float(np.abs(got - ref).max()) if got.shape == ref.shape else np.inf
+                    if status != 200 or err > 1e-4:
+                        raise AssertionError(f"http /stream {mode} f32{attempt}: status {status},"
+                                             f" {got.shape} vs {ref.shape}, max |err| {err:.3e}")
+                    notes.append(f"/stream {mode} f32{attempt} 4 s in {ms:.1f} ms, max |err| "
+                                 f"{err:.3e} from a direct StreamingConverter")
+                i16 = (np.clip(src4, -1, 1) * 32767).astype("<i2").tobytes()
+                status, body = stream_once(port, f"/stream?{q}&incremental={incremental}", i16)
+                got = np.frombuffer(body, dtype="<i2").astype(np.float32) / 32767
+                err = float(np.abs(got - ref).max()) if got.shape == ref.shape else np.inf
+                if status != 200 or err > 2e-2:  # PCM-16 in and out (the JAX package's bound)
+                    raise AssertionError(f"http /stream {mode} i16: status {status}, max |err| "
+                                         f"{err:.3e}")
+                notes.append(f"/stream {mode} i16 max |err| {err:.3e}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as resp:
+                stats = json.loads(resp.read())
+            status, _ = stream_once(port, f"/stream?{q}&rate=8000", b"")
+            if stats.get("requests", 0) < 2 or status != 400:
+                raise AssertionError(f"http: /stats {stats}, rate=8000 gave {status}")
+            notes.append(f"/stats {stats}; rate=8000 -> {status}")
+        finally:
+            stop(server, thread)
+        server, thread = serve(daemon, 0)
+        try:
+            status, _ = stream_once(server.server_address[1], f"/stream?{q}", b"")
+        finally:
+            stop(server, thread)
+        if status != 503:
+            raise AssertionError(f"http: max_stream_sessions=0 gave {status}, not 503")
+        notes.append(f"max_stream_sessions=0 -> {status}")
+    print("http (127.0.0.1, fp32): " + "; ".join(notes) + f" on {card}")
+    del vc
+    torch.cuda.empty_cache()
+
+
 def train_batch(cfg, b, lo_s, hi_s, rng, dev):
     """Paired synthetic clips: a harmonic tone with a known f0 contour and
     breath noise at 48 kHz (target) and 16 kHz (source), padded to the
@@ -1628,10 +2226,17 @@ def cli_run(train_fl: str, val_fl: str, cache: str, workdir: str, card: str) -> 
     torch.cuda.empty_cache()
 
 
+def batch_keys(res, suffix: str = "") -> dict:
+    """A kernel's figures at the daemon's batch of 16 for the kernels line."""
+    return {f"{k}_b16{suffix}": res[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                  "max_abs_err")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from vcvits_tpu_torch.config import load_config
     from vcvits_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1649,8 +2254,14 @@ def main() -> int:
     stft = stft_phase(rng, dev, _build)
     gate = gate_phase(rng, dev, _build)
     mel = mel_phase(rng, dev, _build)
+    batch16 = batch_phase(rng, dev, _build)
     paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
         dev, _build, card)}
+    sd = perturbed_state(load_config(CONFIG))
+    paths["serve"] = serve_phase(dev, _build, card, sd)
+    paths["stream"] = streaming_phase(dev, _build, card, sd)
+    http_phase(dev, _build, card, sd)
+    del sd
     paths["train_step"], _ = path_b_phase(dev, _build, card)
     paths["accumulation"] = accumulation_phase(dev, _build, card)
     paths["training_loop"] = path_c_phase(dev, _build, card)
@@ -1679,7 +2290,9 @@ def main() -> int:
          "device_ms": f32["device_ms"], "bound_ms_cuda_cores": f32["bound_ms_cuda_cores"],
          "bound_ms_3xtf32": f32["bound_ms_3xtf32"], "ms_bf16": b16["ms"],
          "device_ms_bf16": b16["device_ms"], "plain_ms_bf16": b16["plain_ms"],
-         "bound_ms_bf16": b16["bound_ms"], "max_abs_err_bf16": b16["max_abs_err"]},
+         "bound_ms_bf16": b16["bound_ms"], "max_abs_err_bf16": b16["max_abs_err"],
+         **batch_keys(batch16[("mrf", torch.float32)]),
+         **batch_keys(batch16[("mrf", torch.bfloat16)], "_bf16")},
     ]
     for name in ("flow_coupling_reverse", "flow_coupling_forward", "wn_segment"):
         one, two = flow[(name, 1, FLOW_HID)], flow[(name, 2, FLOW_HID)]
@@ -1697,7 +2310,8 @@ def main() -> int:
             entry.update(ms_h256=wide["ms"], device_ms_h256=wide["device_ms"],
                          bound_ms_h256=wide["bound_ms"], max_abs_err_h256=wide["max_abs_err"],
                          ms_bf16_io=b16["ms"], max_abs_err_bf16_io=b16["max_abs_err"],
-                         rel_rms_err_bf16_io=b16["rel_err"])
+                         rel_rms_err_bf16_io=b16["rel_err"],
+                         **batch_keys(batch16["flow_coupling_reverse"]))
         kernels.append(entry)
     train, vc = stft["train 16 x 4 s"], stft["vc 1 x 10.08 s"]
     kernels.append(

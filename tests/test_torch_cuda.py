@@ -24,7 +24,12 @@ NumPy FFT as well. A size the kernel does not take raises on a CUDA tensor. The 
 (K5) is elementwise in fp32: forward and gradients <= 1e-6. The WaveNet
 kernel (K2) runs 3xTF32 like K1: its three modes (coupling reverse and
 forward, a WaveNet segment) are held to max |err| <= 1e-4 x the output's
-RMS against the plain version, at hidden 64, 128 and 256.
+RMS against the plain version, at hidden 64, 128 and 256. At the serving
+daemon's largest batch (16 rows) K1 is held at two stages of a 10 s
+request in fp32 and bf16 (each row also against its run alone) and K2's
+reverse at [16, 930, 128] with a ragged mask, at the same tolerances; a
+daemon batch of 4 on the card matches each request's solo conversion to
+1e-3 absolute.
 """
 
 import numpy as np
@@ -471,3 +476,93 @@ def test_train_step_on_card_matches_cpu(dev):
     assert set(got) == set(ref)
     for k, v in ref.items():
         np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+# The serving daemon's largest batch: 16 rows, each stage of a 10 s request
+@pytest.mark.parametrize("t,c", [(7440, 256), (476160, 32)])
+@pytest.mark.parametrize("wdtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_mrf_kernel_at_serving_batch(dev, t, c, wdtype, tol):
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    x, blocks = _mrf_inputs(np.random.default_rng(c), c, t, ks, ds, wdtype, dev, batch=16)
+    before = _build.LAUNCHES["mrf"]
+    got = mrf(x, blocks, ks, ds)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mrf"] - before == 9
+    ref = mrf_plain(x, blocks, ks, ds)
+    assert got.shape == (16, t, c) and torch.isfinite(got).all()
+    assert _rel_err(got, ref, bf16=wdtype == torch.bfloat16) < tol
+    # every row alone, too: no row of the batch reads another's frames
+    for row in (0, 15):
+        alone = mrf(x[row:row + 1].contiguous(), blocks, ks, ds)
+        assert _rel_err(got[row:row + 1], alone, bf16=wdtype == torch.bfloat16) < tol
+
+
+def test_flow_reverse_at_serving_batch_ragged(dev):
+    """4 couplings (with flips) at [16, 930, 128], hidden 128, each row its
+    own length drawn from 186-930 (a padded daemon batch)."""
+    rng = np.random.default_rng(16)
+    x, _, _, _ = _flow_inputs(rng, 16, 930, 128, 128, 4, dev, True)
+    couplings = [_flow_inputs(rng, 16, 930, 128, 128, 4, dev, True)[2:] for _ in range(4)]
+    lens = torch.tensor(rng.integers(186, 931, 16), device=dev)
+    mask = (torch.arange(930, device=dev)[None, :] < lens[:, None]).float()[..., None]
+
+    def chain(fn):
+        y = x
+        for cond, w in couplings:
+            y = fn(torch.flip(y, dims=[-1]).contiguous(), mask, cond, w)
+        return y
+
+    before = _build.LAUNCHES["flow_coupling_reverse"]
+    got = chain(coupling_reverse)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flow_coupling_reverse"] - before == 4
+    assert _rel_err(got, chain(coupling_reverse_plain)) < 1e-4
+
+
+SERVE_CFG = {
+    "data": {"n_speakers": 8},
+    "model": {"inter_channels": 16, "hidden_channels": 64, "filter_channels": 64,
+              "n_heads": 2, "n_layers": 1, "hubert_channels": 16, "num_pitch": 512,
+              "gin_channels": 8, "upsample_rates": [8, 8, 8], "upsample_kernel_sizes": [16, 16, 16],
+              "upsample_initial_channel": 256, "p_dropout": 0.0},
+}
+
+
+def test_daemon_batch_rows_match_solo_on_card(dev):
+    """A ServingDaemon batch of 4 equal-length requests on the card (K2 4
+    launches and K1 27 for the whole batch) against each request's solo
+    convert_array, noise_scale 0: every row within 1e-3."""
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.serving import ServingDaemon
+
+    hub = HubertConfig(conv_layers=((16, 10, 5), (16, 8, 8), (16, 8, 8)), hidden_size=16,
+                       num_layers=1, num_heads=2, intermediate_size=32, pos_conv_kernel=8,
+                       pos_conv_groups=2)
+    vc = VoiceConverter(Config.from_dict(SERVE_CFG), device=dev, hubert_cfg=hub, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # a non-identity flow and an audible decoder
+        for name, p in vc.gen.named_parameters():
+            if name.startswith("flow.") and ".post." in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+            elif name.startswith("dec.") and name.endswith(".g"):
+                p.mul_(3.0)
+    rng = np.random.default_rng(2)
+    n = 48000
+    reqs = [((0.3 * np.sin(2 * np.pi * f * np.arange(n) / 16000)
+              + 0.02 * rng.standard_normal(n)).astype(np.float32),
+             rng.integers(1, 512, n // 320), sid) for f, sid in ((150, 1), (210, 3), (260, 5),
+                                                                 (330, 7))]
+    solo = [vc.convert_array(w, p, sid, noise_scale=0.0) for w, p, sid in reqs]
+    before = dict(_build.LAUNCHES)
+    with ServingDaemon(vc, max_batch=4, window_ms=500) as daemon:
+        outs = [f.result(timeout=300) for f in
+                [daemon.submit(w, p, n, sid, noise_scale=0.0) for w, p, sid in reqs]]
+        sizes = list(daemon._batch_sizes)
+    assert sizes == [4]
+    rose = {k: _build.LAUNCHES[k] - before.get(k, 0) for k in ("flow_coupling_reverse", "mrf")}
+    assert rose == {"flow_coupling_reverse": 4, "mrf": 27}
+    for got, want in zip(outs, solo):
+        assert got.shape == want.shape and np.abs(want).mean() > 1e-3
+        assert np.abs(got - want).max() <= 1e-3

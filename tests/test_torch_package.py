@@ -2,11 +2,11 @@
 
 * No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
   flax, optax, orbax or vcvits_tpu.
-* Importing the package, its trainer, data pipeline, metrics and CLI loads
-  no JAX.
+* Importing the package, its trainer, data pipeline, metrics, serving and
+  streaming modules and CLIs loads no JAX.
 * Entry points (conversion, flow-swap conversion, the train step, the
   trainer, the device batcher, the metrics, loading a checkpoint, the
-  HuBERT feature dump) refuse to run on the CPU unless asked to.
+  HuBERT feature dump, the serving CLI) refuse to run on the CPU unless asked to.
 * On CPU tensors the kernel wrappers take their plain versions and count
   no launch; K3's wrapper refuses an input that requires grad.
 * The port's config loads the repo's JSON configs exactly as JAX's does.
@@ -63,7 +63,9 @@ def test_import_loads_no_jax():
             "vcvits_tpu_torch.train.trainer, vcvits_tpu_torch.eval, vcvits_tpu_torch.cli.train, "
             "vcvits_tpu_torch.data.filelist, vcvits_tpu_torch.data.collate, "
             "vcvits_tpu_torch.data.dataset, vcvits_tpu_torch.data.loader, "
-            "vcvits_tpu_torch.data.device_cache, vcvits_tpu_torch.data.preload; "
+            "vcvits_tpu_torch.data.device_cache, vcvits_tpu_torch.data.preload, "
+            "vcvits_tpu_torch.serving, vcvits_tpu_torch.streaming, "
+            "vcvits_tpu_torch.streaming_conv, vcvits_tpu_torch.cli.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -73,6 +75,7 @@ def test_import_loads_no_jax():
 
 
 def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
+    from vcvits_tpu_torch.cli import serve as serve_cli
     from vcvits_tpu_torch.data.device_cache import DeviceBatcher
     from vcvits_tpu_torch.data.preload import dump_hubert_features
     from vcvits_tpu_torch.eval import evaluate_pair
@@ -90,7 +93,8 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
                   lambda: DeviceBatcher([], cfg.data, 2),
                   lambda: evaluate_pair(wav, wav, 48000),
                   lambda: VoiceConverter.from_checkpoint(str(tmp_path)),
-                  lambda: dump_hubert_features([], cfg, torch.nn.Linear(1, 1))):
+                  lambda: dump_hubert_features([], cfg, torch.nn.Linear(1, 1)),
+                  lambda: serve_cli.main(["--workdir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 

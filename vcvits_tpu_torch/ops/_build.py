@@ -16,7 +16,10 @@ The host library `csrc/host_dsp.cc` is built by the sibling
 `ops/_host_build.py`, which imports no torch.
 
 `LAUNCHES` counts kernel launches by kernel name: every wrapper adds one
-where it launches its kernel, and nowhere else. `device_guard` and
+(`count`) where it launches its kernel, and nowhere else. Kernels launch
+from several threads at once when serving (the daemon's dispatcher and
+each streaming connection), so `load` builds and loads a library once per
+process under a lock, and `count` adds under a lock. `device_guard` and
 `current_stream` are the wrappers' host path to a launch: no device switch
 when the tensor is on the current device, and the raw handle of the
 current stream without building a `torch.cuda.Stream`; `aligned16` gives
@@ -31,6 +34,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -46,6 +50,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name` to LAUNCHES."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -100,12 +112,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
+    """The loaded kernel library `name`, built first if needed: once per
+    process, whichever threads ask at the same time. A failed build raises
+    in every thread that asked."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(lib_path(name)))
+                _LIBS[name] = lib
     return lib
 
 

@@ -242,7 +242,7 @@ def _launch(mode: int, x: torch.Tensor, skip: Optional[torch.Tensor], mask: torc
             ptr(b_post), out.data_ptr(), ptr(sk_out), b, t, half if coupling else 0, hidden,
             n_layers, k, _build.current_stream(x.device))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name)
     return out if coupling else (out, sk_out)
 
 

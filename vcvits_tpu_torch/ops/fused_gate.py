@@ -79,7 +79,7 @@ def launch_forward(a: torch.Tensor, b: Optional[torch.Tensor], n_channels: int) 
             a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), bsz, t,
             n_channels, a.dtype == torch.bfloat16, _build.current_stream(a.device))
     _build.check(err, "fused_gate_fwd")
-    _build.LAUNCHES["fused_gate"] += 1
+    _build.count("fused_gate")
     return out
 
 
@@ -95,7 +95,7 @@ def launch_backward(grad_out: torch.Tensor, a: torch.Tensor, b: Optional[torch.T
             grad_x.data_ptr(), bsz, t, n_channels, a.dtype == torch.bfloat16,
             _build.current_stream(a.device))
     _build.check(err, "fused_gate_bwd")
-    _build.LAUNCHES["fused_gate_backward"] += 1
+    _build.count("fused_gate_backward")
     return grad_x
 
 

@@ -181,7 +181,7 @@ def mrf(x: torch.Tensor, blocks: Sequence[Block], kernel_sizes: Sequence[int],
                                    t_len, c, k, d, plan(c, k, d, wdt).rows, epi, inv_n, bf16,
                                    stream)
                 _build.check(err, "mrf_pair")
-                _build.LAUNCHES["mrf"] += 1
+                _build.count("mrf")
                 src = out
         return total.to(x.dtype)
 

@@ -282,7 +282,7 @@ def _launch(y: torch.Tensor, mode: int, n_fft: int, hop_length: int, win_length:
                            n_mels, tile, mode, clip_val,
                            _build.current_stream(y.device))
         _build.check(err, "stft_mel")
-        _build.LAUNCHES["mel_spectrogram" if mode == MEL_ONLY else "stft_mel"] += 1
+        _build.count("mel_spectrogram" if mode == MEL_ONLY else "stft_mel")
     return spec, mel
 
 
