@@ -29,7 +29,10 @@ daemon's largest batch (16 rows) K1 is held at two stages of a 10 s
 request in fp32 and bf16 (each row also against its run alone) and K2's
 reverse at [16, 930, 128] with a ragged mask, at the same tolerances; a
 daemon batch of 4 on the card matches each request's solo conversion to
-1e-3 absolute.
+1e-3 absolute. The W8A8 int8 conv (Q1) sums exact integers, as its plain
+version does in float64, and dequantizes in the same float32 order: its
+outputs are within 1 ulp of the output type; its rows' maxima (Q2) and
+the scales made on the card are the plain version's bit for bit.
 """
 
 import numpy as np
@@ -566,3 +569,98 @@ def test_daemon_batch_rows_match_solo_on_card(dev):
     for got, want in zip(outs, solo):
         assert got.shape == want.shape and np.abs(want).mean() > 1e-3
         assert np.abs(got - want).max() <= 1e-3
+
+
+# ---------------------------------------------------------------- Q1 / Q2
+# The W8A8 int8 conv (csrc/int8_conv.cu) against its plain version
+# (ops/int8_conv.py): Q2's row maxima bit-equal; Q1's integer sums are
+# exact on both sides and the dequantization is the same float32
+# arithmetic in the same order, so its outputs are within 1 ulp of the
+# output type.
+
+INT8_CASES = {  # Ci, Co, k, dilation, (pad_lo, pad_hi), T, B, slope
+    "mrf k11 d5": (64, 64, 11, 5, (25, 25), 1000, 1, 0.1),
+    "mrf ragged B=3": (32, 32, 7, 3, (9, 9), 517, 3, 0.1),
+    "conv_pre": (128, 512, 7, 1, (3, 3), 200, 2, None),
+    "up phase-decomposed": (256, 1024, 3, 1, (1, 1), 300, 1, 0.1),
+    "conv_post": (32, 1, 7, 1, (3, 3), 1111, 2, 0.01),
+    "odd widths": (30, 20, 3, 1, (1, 1), 77, 2, 0.1),
+}
+
+
+def _ulps(got, ref):
+    """Largest distance in units in the last place of the tensors' type."""
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    a, b = (t.contiguous().view(bits).long() for t in (got, ref))
+    top = 1 << (31 if bits == torch.int32 else 15)
+    a, b = (torch.where(v < 0, -top - v, v) for v in (a, b))  # order like the floats
+    return int((a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_conv_kernel_matches_plain(dev, case, dtype):
+    from vcvits_tpu_torch.ops.int8_conv import (
+        conv1d_w8a8, conv1d_w8a8_plain, prepare_w8a8, row_absmax, row_absmax_plain)
+
+    ci, co, k, d, pad, t, b, slope = INT8_CASES[case]
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((b, t, ci)), dtype=torch.float32, device=dev).to(dtype)
+    x[:, -5:] *= 3.0  # the row maximum near the end of a row
+    w = torch.tensor(rng.standard_normal((co, ci, k)) / np.sqrt(k * ci), dtype=torch.float32,
+                     device=dev)
+    bias = torch.tensor(rng.standard_normal(co) * 0.1, dtype=torch.float32, device=dev)
+    qw = prepare_w8a8(w)
+    amax = row_absmax(x, slope)
+    assert torch.equal(amax, row_absmax_plain(x, slope))
+    got = conv1d_w8a8(x, qw, pad, bias, d, slope)
+    ref = conv1d_w8a8_plain(x, qw, pad, bias, d, slope)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, t + pad[0] + pad[1] - (k - 1) * d, co)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert _ulps(got, ref) <= 1
+    assert conv1d_w8a8(x, qw, pad, None, d, slope).shape == ref.shape
+
+
+def test_int8_conv_counts_launches_and_refuses(dev):
+    from vcvits_tpu_torch.ops.int8_conv import conv1d_w8a8, kernel_plan, plan, prepare_w8a8
+
+    x = torch.zeros(1, 64, 513, device=dev)
+    with pytest.raises(ValueError):
+        conv1d_w8a8(x, prepare_w8a8(torch.ones(8, 513, 3, device=dev)), (1, 1))
+    with pytest.raises(ValueError):
+        conv1d_w8a8(x[..., :32].contiguous(), prepare_w8a8(torch.ones(8, 32, 14, device=dev)),
+                    (30, 30), dilation=5)
+    with pytest.raises(ValueError):
+        kernel_plan(513, 8, 3, 1)
+    for ci, co, k, d in ((512, 4096, 3, 1), (256, 256, 11, 5), (1, 1, 1, 1), (30, 20, 7, 3)):
+        assert kernel_plan(ci, co, k, d) == plan(ci, co, k, d).smem
+    x = torch.randn(2, 100, 32, device=dev)
+    before = dict(_build.LAUNCHES)
+    conv1d_w8a8(x, prepare_w8a8(torch.randn(16, 32, 3, device=dev)), (1, 1), slope=0.1)
+    assert {n: _build.LAUNCHES[n] - before.get(n, 0) for n in ("int8_conv1d", "row_absmax")} \
+        == {"int8_conv1d": 1, "row_absmax": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 7440, 256), (3, 1001, 3), (1, 476160, 32)])
+def test_row_absmax_kernel_bit_equal(dev, shape, dtype):
+    from vcvits_tpu_torch.ops.int8_conv import row_absmax, row_absmax_plain
+
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(dtype)
+    for slope in (None, 0.1, 0.01):
+        assert torch.equal(row_absmax(x, slope), row_absmax_plain(x, slope))
+
+
+def test_int8_scales_on_card_equal_host(dev):
+    """Weight and activation scales made on the card are the host's bit for
+    bit (an IEEE division by 127: PyTorch would multiply a CUDA tensor by
+    the reciprocal of a host scalar)."""
+    from vcvits_tpu_torch.ops.int8_conv import act_scale, prepare_w8a8, row_absmax
+
+    rng = np.random.default_rng(11)
+    w = torch.tensor(rng.standard_normal((512, 64, 3)), dtype=torch.float32)
+    assert torch.equal(prepare_w8a8(w.to(dev)).scale.cpu(), prepare_w8a8(w).scale)
+    x = torch.tensor(rng.standard_normal((64, 300, 32)), dtype=torch.float32)
+    assert torch.equal(act_scale(row_absmax(x.to(dev), 0.1)).cpu(), act_scale(row_absmax(x, 0.1)))

@@ -3,10 +3,11 @@
 * No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
   flax, optax, orbax or vcvits_tpu.
 * Importing the package, its trainer, data pipeline, metrics, serving and
-  streaming modules and CLIs loads no JAX.
+  streaming modules, converters, the int8 conv and CLIs loads no JAX.
 * Entry points (conversion, flow-swap conversion, the train step, the
   trainer, the device batcher, the metrics, loading a checkpoint, the
-  HuBERT feature dump, the serving CLI) refuse to run on the CPU unless asked to.
+  HuBERT feature dump, the serving CLI with and without the int8 decoder,
+  the inference CLI) refuse to run on the CPU unless asked to.
 * On CPU tensors the kernel wrappers take their plain versions and count
   no launch; K3's wrapper refuses an input that requires grad.
 * The port's config loads the repo's JSON configs exactly as JAX's does.
@@ -27,6 +28,8 @@ from vcvits_tpu_torch.config import load_config
 from vcvits_tpu_torch.ops import _build
 from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_reverse_plain
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
+from vcvits_tpu_torch.ops.int8_conv import (
+    conv1d_w8a8, conv1d_w8a8_plain, prepare_w8a8, row_absmax, row_absmax_plain)
 from vcvits_tpu_torch.ops.mrf import mrf, mrf_plain
 from vcvits_tpu_torch.ops.stft_mel import (
     spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
@@ -65,7 +68,11 @@ def test_import_loads_no_jax():
             "vcvits_tpu_torch.data.dataset, vcvits_tpu_torch.data.loader, "
             "vcvits_tpu_torch.data.device_cache, vcvits_tpu_torch.data.preload, "
             "vcvits_tpu_torch.serving, vcvits_tpu_torch.streaming, "
-            "vcvits_tpu_torch.streaming_conv, vcvits_tpu_torch.cli.serve; "
+            "vcvits_tpu_torch.streaming_conv, vcvits_tpu_torch.cli.serve, "
+            "vcvits_tpu_torch.cli.infer, vcvits_tpu_torch.cli.filelist, "
+            "vcvits_tpu_torch.cli.split, vcvits_tpu_torch.cli.convert_checkpoint, "
+            "vcvits_tpu_torch.convert.vcvits_torch, vcvits_tpu_torch.convert.export_torch, "
+            "vcvits_tpu_torch.convert.hubert_torch, vcvits_tpu_torch.ops.int8_conv; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -75,6 +82,7 @@ def test_import_loads_no_jax():
 
 
 def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
+    from vcvits_tpu_torch.cli import infer as infer_cli
     from vcvits_tpu_torch.cli import serve as serve_cli
     from vcvits_tpu_torch.data.device_cache import DeviceBatcher
     from vcvits_tpu_torch.data.preload import dump_hubert_features
@@ -94,7 +102,9 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
                   lambda: evaluate_pair(wav, wav, 48000),
                   lambda: VoiceConverter.from_checkpoint(str(tmp_path)),
                   lambda: dump_hubert_features([], cfg, torch.nn.Linear(1, 1)),
-                  lambda: serve_cli.main(["--workdir", str(tmp_path)])):
+                  lambda: serve_cli.main(["--workdir", str(tmp_path)]),
+                  lambda: serve_cli.main(["--workdir", str(tmp_path), "--int8-decoder"]),
+                  lambda: infer_cli.main(["in.wav", "out.wav", "--workdir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
@@ -165,6 +175,11 @@ def test_wrappers_take_plain_version_on_cpu():
     ref_spec, ref_mel = spectrogram_mel_plain(y, 512, 8, 16000, 128, 512)
     assert torch.equal(spec, ref_spec) and torch.equal(mel, ref_mel)
     assert torch.equal(spectrogram(y, 512, 128, 512), spectrogram_plain(y, 512, 128, 512))
+
+    qw = prepare_w8a8(torch.tensor(rng.standard_normal((6, c, 3)), dtype=torch.float32))
+    assert torch.equal(row_absmax(x, 0.1), row_absmax_plain(x, 0.1))
+    assert torch.equal(conv1d_w8a8(x, qw, (1, 1), slope=0.1),
+                       conv1d_w8a8_plain(x, qw, (1, 1), slope=0.1))
 
     a = torch.tensor(rng.standard_normal((2, 9, 2 * h)), dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((2, 1, 2 * h)), dtype=torch.float32)

@@ -383,10 +383,72 @@ def test_cli_serve_answers_convert(vc, tmp_path, monkeypatch):
     np.testing.assert_allclose(out, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("extra,item", [(["--int8-decoder"], "item 3"),
-                                        (["--data-parallel", "2"], "item 6")])
+@pytest.mark.parametrize("extra,item", [
+    pytest.param(["--data-parallel", "2"], "item 6", id="extra1-item 6")])
 def test_cli_serve_refuses_what_is_not_ported(tmp_path, extra, item):
     from vcvits_tpu_torch.cli import serve as cli
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         cli.main(["--workdir", str(tmp_path / "none"), "-a", "cpu", *extra])
+
+
+@pytest.mark.parametrize("mode_args,quant", [([], True), (["--int8-decoder-mode", "w8"], "w8")])
+def test_cli_serve_int8_decoder_builds_its_daemon(vc, tmp_path, monkeypatch, mode_args, quant):
+    """`cli.serve --int8-decoder`, -a cpu, on a tiny checkpoint: the daemon's
+    converter decodes in the chosen int8 mode, and its /convert equals
+    that converter's convert_array at the request's padded length."""
+    from vcvits_tpu_torch.cli import serve as cli
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.models import synthesizer
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.train.checkpoint import CheckpointManager
+
+    workdir = tmp_path / "run"
+    mgr = CheckpointManager(str(workdir / "checkpoints"))
+    mgr.save(3, {"step": 3, "gen": vc.gen.state_dict()})
+    mgr.wait()
+    (workdir / "config.json").write_text(json.dumps(CFG))
+    monkeypatch.setattr(synthesizer, "hubert_config_for", lambda channels: HubertConfig(**HUBERT))
+    servers, daemons = [], []
+
+    def recording_serve_http(*args, **kwargs):
+        servers.append(serve_http(*args, **kwargs))
+        return servers[-1]
+
+    class RecordingDaemon(serving.ServingDaemon):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            daemons.append(self)
+
+    monkeypatch.setattr(serving, "serve_http", recording_serve_http)
+    monkeypatch.setattr(serving, "ServingDaemon", RecordingDaemon)
+    port = _free_port()
+    thread = threading.Thread(target=cli.main, args=([
+        "--workdir", str(workdir), "-a", "cpu", "--port", str(port), "--max-batch", "2",
+        "--window-ms", "5", "--int8-decoder", *mode_args],), daemon=True)
+    thread.start()
+    src = str(tmp_path / "in.wav")
+    t = np.arange(int(SR * 0.4)) / SR
+    write_wav(src, (0.3 * np.sin(2 * np.pi * 300 * t)).astype(np.float32), SR)
+    try:
+        deadline = time.monotonic() + TIMEOUT
+        while not servers and time.monotonic() < deadline:
+            time.sleep(0.05)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/convert?sid=2&noise_scale=0",
+                                     data=open(src, "rb").read(), method="POST")
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as resp:
+            assert resp.status == 200
+            (tmp_path / "out.wav").write_bytes(resp.read())
+    finally:
+        if servers:
+            servers[0].shutdown()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert daemons[0].vc.gen.dec.quant_int8 == quant
+    out, sr = read_wav(str(tmp_path / "out.wav"))
+    q = VoiceConverter.from_checkpoint(str(workdir), device="cpu", quant_int8=quant,
+                                       hubert_cfg=HubertConfig(**HUBERT))
+    wav, true_len, pitch = q.prepare_source(src)
+    want = q.convert_array(wav, pitch, 2, true_len, noise_scale=0.0)
+    assert sr == 48000 and out.shape == want.shape
+    np.testing.assert_allclose(out, want, atol=1e-5, rtol=0)

@@ -157,8 +157,3 @@ def test_transposed_conv_as_stuffed_flipped_conv():
     out = got.x[0].T.numpy()[lead:]
     np.testing.assert_allclose(out, ref[:len(out)], atol=1e-5, rtol=1e-5)
     assert len(out) == f * u - lead
-
-
-def test_resblock2_raises():
-    with pytest.raises(NotImplementedError, match="ResBlock2"):
-        StreamingFlowDecoder(ModelConfig(resblock="2"), 8)

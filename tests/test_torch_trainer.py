@@ -25,8 +25,8 @@ read what the logger hands it.
 * `python -m vcvits_tpu_torch.cli.train` trains in bf16 when the config
   says `"fp16_run": true` (as both shipped configs do) or `--bf16` is
   given, and honours `accumulate_grad_batches` (one k = 2 cycle: two
-  mini-steps, one update); it refuses what is not ported (multi-GPU,
-  --hubert-ckpt), naming the ROADMAP item, before it builds anything.
+  mini-steps, one update); it refuses what is not ported (multi-GPU),
+  naming the ROADMAP item, before it builds anything.
 """
 
 import os
@@ -313,8 +313,7 @@ def test_cli_trains_bf16_and_accumulates(run, tmp_path, monkeypatch, extra, fp16
 
 
 @pytest.mark.parametrize("extra,fp16_run", [
-    (["--model-parallel", "2"], False), (["--distributed"], False),
-    (["--hubert-ckpt", "hubert.pt"], False)])
+    (["--model-parallel", "2"], False), (["--distributed"], False)])
 def test_cli_refuses_what_is_not_ported(run, tmp_path, extra, fp16_run):
     import json
 
@@ -327,3 +326,44 @@ def test_cli_refuses_what_is_not_ported(run, tmp_path, extra, fp16_run):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main(["-c", str(cfg_path), "-a", "cpu", "-s", "--workdir", str(workdir), *extra])
     assert not workdir.exists()
+
+
+def test_cli_trains_with_hubert_ckpt(run, tmp_path, monkeypatch):
+    """cli.main --hubert-ckpt on the CPU: a synthetic fairseq HuBERT `.pt`
+    (convert/export_torch's naming, random weights) is converted into the
+    generator's frozen HuBERT, which one training step leaves as loaded;
+    the saved checkpoint holds it."""
+    import json
+
+    from vcvits_tpu_torch.cli import train as cli
+    from vcvits_tpu_torch.convert.hubert_torch import export_hubert_state_dict
+    from vcvits_tpu_torch.models import synthesizer
+    from vcvits_tpu_torch.models.hubert import HubertModel
+    from vcvits_tpu_torch.models.layers import init_weights
+    from vcvits_tpu_torch.train import trainer as trainer_mod
+
+    tmp, fl, _, _, _ = run
+    built = []
+
+    class Recorded(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(synthesizer, "hubert_config_for", lambda channels: HUB)
+    monkeypatch.setattr(trainer_mod, "Trainer", Recorded)
+    want = init_weights(HubertModel(HUB), 123).state_dict()
+    ckpt = tmp_path / "hubert_fairseq.pt"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                          export_hubert_state_dict(want).items()}}, str(ckpt))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(_cfg(tmp, fl, fp16_run=False)))
+    workdir = tmp_path / "logs"
+    cli.main(["-c", str(cfg_path), "-a", "cpu", "-s", "--workdir", str(workdir),
+              "--max-steps", "1", "--hubert-ckpt", str(ckpt)])
+    (trainer,) = built
+    got = trainer.train_step.gen.enc_p.hubert.state_dict()
+    saved = CheckpointManager(str(workdir / "checkpoints")).restore()
+    assert trainer.train_step.step == 1
+    for k, v in want.items():
+        assert torch.equal(got[k], v) and torch.equal(saved["gen"][f"enc_p.hubert.{k}"], v), k

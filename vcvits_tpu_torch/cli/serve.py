@@ -16,8 +16,11 @@
 The generator is the latest checkpoint of the training run in --workdir
 (`VoiceConverter.from_checkpoint`), with the run's config.json unless -c
 names one. float32 runs with TF32 off; --bf16 computes in bfloat16.
---data-parallel above 1 and --int8-decoder raise NotImplementedError until
-their slices are ported.
+--int8-decoder builds the daemon's converter with the int8 decoder
+(--int8-decoder-mode w8a8, the default: dynamic W8A8 on the int8 tensor
+cores; w8: weight-only); the windowed /stream decodes in that mode too, the
+incremental one on the float weights, as in JAX. --data-parallel above 1
+raises NotImplementedError until its slice is ported.
 """
 
 from __future__ import annotations
@@ -43,11 +46,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "precision), mulaw ships 8-bit companded codes")
     p.add_argument("--max-stream-sessions", type=int, default=4,
                    help="cap on live POST /stream sessions (excess connections get 503)")
-    # not ported yet: each raises
+    p.add_argument("--int8-decoder", action="store_true",
+                   help="int8 decoder convs (same checkpoint, small quantization noise)")
+    p.add_argument("--int8-decoder-mode", choices=("w8a8", "w8"), default="w8a8",
+                   help="w8a8 = dynamic int8 activations and weights on the int8 tensor cores; "
+                        "w8 = weight-only int8, activations in the compute dtype")
+    # not ported yet: raises
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
                    help="not ported above 1 (ROADMAP Queue 1 item 6)")
-    p.add_argument("--int8-decoder", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 3)")
     return p.parse_args(argv)
 
 
@@ -56,12 +62,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.data_parallel > 1:
         raise NotImplementedError("data-parallel serving over several GPUs is not ported "
                                   "(ROADMAP Queue 1 item 6)")
-    if args.int8_decoder:
-        raise NotImplementedError("the int8 decoder is not ported (ROADMAP Queue 1 item 3)")
     logging.basicConfig(level=logging.INFO)
 
     import torch
 
+    from vcvits_tpu_torch.cli.infer import quant_mode
     from vcvits_tpu_torch.config import load_config
     from vcvits_tpu_torch.infer import VoiceConverter
     from vcvits_tpu_torch.serving import ServingDaemon, serve_http
@@ -72,7 +77,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = load_config(args.config) if args.config else None
     vc = VoiceConverter.from_checkpoint(
         args.workdir, cfg=cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.accelerator)
+        device=args.accelerator, quant_int8=quant_mode(args))
     with ServingDaemon(vc, max_batch=args.max_batch, window_ms=args.window_ms,
                        transfer=args.transfer) as daemon:
         server = serve_http(daemon, host=args.host, port=args.port,

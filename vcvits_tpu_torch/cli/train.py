@@ -8,8 +8,10 @@ on the card with the auto-resume of train/trainer.py. `"fp16_run": true`
 (both shipped configs) or --bf16 computes in bfloat16, float32 otherwise;
 `trainer.accumulate_grad_batches` mini-steps make an update. What stays
 float32 (the targets, the mel loss, the optimizer) runs with TF32 off.
---model-parallel > 1, --distributed and --hubert-ckpt raise
-NotImplementedError until their slices are ported.
+--hubert-ckpt loads a fairseq HuBERT checkpoint (convert/hubert_torch.py)
+into the generator's frozen HuBERT before training (a resumed run keeps
+its checkpoint's), and the --preload dump uses it. --model-parallel > 1
+and --distributed raise NotImplementedError until their slice is ported.
 """
 
 from __future__ import annotations
@@ -45,12 +47,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "--preload-dump, dump all 25 shift variants")
     p.add_argument("--bf16", action="store_true",
                    help="compute in bfloat16 (also selected by \"fp16_run\": true)")
+    p.add_argument("--hubert-ckpt", default=None,
+                   help="a fairseq HuBERT .pt for the frozen content encoder")
     # not ported yet: each raises
     p.add_argument("--model-parallel", type=int, default=1,
                    help="not ported above 1 (ROADMAP Queue 1 item 6)")
     p.add_argument("--distributed", action="store_true",
                    help="not ported (ROADMAP Queue 1 item 6)")
-    p.add_argument("--hubert-ckpt", default=None, help="not ported (ROADMAP Queue 1 item 7)")
     return p.parse_args(argv)
 
 
@@ -68,9 +71,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = load_config(args.config)
     if args.model_parallel > 1 or args.distributed:
         raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 6)")
-    if args.hubert_ckpt:
-        raise NotImplementedError("--hubert-ckpt (fairseq HuBERT conversion) is not ported "
-                                  "(ROADMAP Queue 1 item 7)")
     dtype = torch.bfloat16 if (args.bf16 or cfg.train.fp16_run) else torch.float32
     if args.batch_size:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
@@ -97,11 +97,18 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     trainer = Trainer(cfg, workdir=args.workdir, device=args.accelerator, preload=args.preload,
                       preload_shift_aug=args.preload_shift_aug, dtype=dtype)
+    if args.hubert_ckpt:
+        from vcvits_tpu_torch.convert.hubert_torch import load_fairseq_checkpoint
+        from vcvits_tpu_torch.models.synthesizer import hubert_config_for
+
+        trainer.train_step.gen.enc_p.hubert.load_state_dict(load_fairseq_checkpoint(
+            args.hubert_ckpt, hubert_config_for(cfg.model.hubert_channels)))
     if args.preload or args.preload_dump:
         from vcvits_tpu_torch.data.preload import SHIFT_SET, dump_hubert_features
 
-        logging.warning("dumping features from the seeded HuBERT of the trainer's generator "
-                        "(--hubert-ckpt is not ported)")
+        if not args.hubert_ckpt:
+            logging.warning("--preload without --hubert-ckpt: dumping features from the "
+                            "seeded HuBERT of the trainer's generator")
         for f in files:
             # shift variants for the training set only (no augmentation on validation)
             shifts = SHIFT_SET if args.preload_shift_aug and f == cfg.data.training_files \

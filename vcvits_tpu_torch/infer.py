@@ -12,7 +12,9 @@ Counterpart of vcvits_tpu/infer.py:VoiceConverter.
 
 Inputs are padded to an alignment-unit boundary, as in JAX.
 `VoiceConverter.from_checkpoint` loads the generator of a training run
-(train/trainer.py) from its workdir.
+(train/trainer.py) from its workdir. `quant_int8` (True: dynamic W8A8, "w8":
+weight-only) builds the generator with the int8 decoder, as JAX's clone
+does, so every conversion decodes in that mode on the same weights.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,14 +45,15 @@ logger = logging.getLogger(__name__)
 class VoiceConverter:
     def __init__(self, cfg: Config, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  dtype=torch.float32, device="cuda", hubert_cfg: Optional[HubertConfig] = None,
-                 seed: int = 0):
+                 seed: int = 0, quant_int8: Union[bool, str] = False):
         """A converter on `device` ("cuda" by default; raises when no GPU
         is present unless device="cpu"). Weights come from `state_dict`, or
-        from the seeded initialiser when it is None."""
+        from the seeded initialiser when it is None. A true `quant_int8`
+        overrides the config's `dec_quant_int8`."""
         self.cfg = cfg
         self.gen = SynthesizerSVC.from_config(
             cfg, dtype=dtype, device=device, seed=seed if state_dict is None else None,
-            hubert_cfg=hubert_cfg)
+            hubert_cfg=hubert_cfg, dec_quant_int8=quant_int8 or None)
         if state_dict is not None:
             self.gen.load_state_dict(state_dict)
         self.gen.eval()
@@ -59,15 +62,17 @@ class VoiceConverter:
 
     @classmethod
     def from_params(cls, cfg: Config, g_params: Mapping, dtype=torch.float32, device="cuda",
-                    hubert_cfg: Optional[HubertConfig] = None) -> "VoiceConverter":
+                    hubert_cfg: Optional[HubertConfig] = None,
+                    quant_int8: Union[bool, str] = False) -> "VoiceConverter":
         """From the JAX package's generator parameters as numpy arrays."""
         return cls(cfg, params_from_jax(g_params, cfg), dtype=dtype, device=device,
-                   hubert_cfg=hubert_cfg)
+                   hubert_cfg=hubert_cfg, quant_int8=quant_int8)
 
     @classmethod
     def from_checkpoint(cls, workdir: str, cfg: Optional[Config] = None,
                         step: Optional[int] = None, dtype=torch.float32, device="cuda",
-                        hubert_cfg: Optional[HubertConfig] = None) -> "VoiceConverter":
+                        hubert_cfg: Optional[HubertConfig] = None,
+                        quant_int8: Union[bool, str] = False) -> "VoiceConverter":
         """The generator of a training run's checkpoint at `step` (the
         latest by default) under `workdir`/checkpoints. With cfg None, the
         run's `workdir`/config.json is read (the default Config where it is
@@ -84,7 +89,8 @@ class VoiceConverter:
         if cfg is None:
             cfg_path = os.path.join(workdir, "config.json")
             cfg = load_config(cfg_path) if os.path.exists(cfg_path) else Config()
-        return cls(cfg, state["gen"], dtype=dtype, device=device, hubert_cfg=hubert_cfg)
+        return cls(cfg, state["gen"], dtype=dtype, device=device, hubert_cfg=hubert_cfg,
+                   quant_int8=quant_int8)
 
     def prepare_source(self, path: str, pitch_shift: int = 0
                        ) -> Tuple[np.ndarray, int, np.ndarray]:

@@ -15,18 +15,28 @@ JAX's unfused ResBlock1 loop (vcvits_tpu/models/hifigan.py:56-80,
 bf16 step runs bf16 convolutions. The caller chooses, as in JAX; nothing
 looks at requires_grad. The JAX package's space-to-depth tail folding and
 dilation phase split are exact TPU rewrites of these convs and are not
-carried over; int8 and ResBlock2 are not ported and raise.
+carried over.
+
+`quant_int8` is JAX's int8 decoder (inference only, same checkpoint):
+True, dynamic W8A8, runs every conv (`conv_pre`, the upsamplers, every res
+block conv, `conv_post`) through ops/int8_conv.py (kernels Q2 and Q1 on the
+card), with the leaky ReLU before each conv fused into its quantizer and
+the res blocks as modules whatever `fused_mrf` says: a conv's activation
+scale is a maximum over its whole input row, so the pairs K1 fuses cannot
+be. "w8" keeps every path and runs it on the weights' int8-grid copies in
+the compute dtype, K1 included. ResBlock2 (`resblock="2"`: per dilation
+x += c_i(lrelu(x))) runs as modules on both paths, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from vcvits_tpu_torch.models.layers import (
-    LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, leaky_relu)
+    LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, check_quant_int8)
 from vcvits_tpu_torch.ops.mrf import Block, mrf
 
 
@@ -34,16 +44,19 @@ class ResBlock1(nn.Module):
     """MRF residual block: per dilation, a dilated conv and a plain conv."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilations: Tuple[int, ...] = (1, 3, 5), dtype=torch.float32):
+                 dilations: Tuple[int, ...] = (1, 3, 5), quant_int8: Union[bool, str] = False,
+                 dtype=torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilations = tuple(dilations)
         self.dtype = dtype
         for i, d in enumerate(self.dilations):
             self.add_module(f"c1_{i}", Conv1d(channels, channels, kernel_size, dilation=d,
-                                              weight_norm=True, kernel_init="normal", dtype=dtype))
+                                              weight_norm=True, kernel_init="normal",
+                                              quant_int8=quant_int8, dtype=dtype))
             self.add_module(f"c2_{i}", Conv1d(channels, channels, kernel_size, weight_norm=True,
-                                              kernel_init="normal", dtype=dtype))
+                                              kernel_init="normal", quant_int8=quant_int8,
+                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """This block alone, through ops/mrf.py (an MRF of one block)."""
@@ -55,23 +68,45 @@ class ResBlock1(nn.Module):
         dilation x += c2(lrelu(c1(lrelu(x))))."""
         x = x.to(self.dtype)
         for i in range(len(self.dilations)):
-            xt = getattr(self, f"c1_{i}")(leaky_relu(x, LRELU_SLOPE))
-            x = getattr(self, f"c2_{i}")(leaky_relu(xt, LRELU_SLOPE)) + x
+            xt = getattr(self, f"c1_{i}")(x, act_slope=LRELU_SLOPE)
+            x = getattr(self, f"c2_{i}")(xt, act_slope=LRELU_SLOPE) + x
         return x
 
     def stacked_weights(self, dtype: torch.dtype) -> Block:
         """(w1 [D, k, C, C], b1 [D, C], w2, b2) in ops/mrf.py's layout, folded
         in float32 and cast to `dtype`, as fold_resblock_weights does;
-        differentiable in the block's parameters."""
+        differentiable in the block's parameters (in "w8" mode the kernels
+        are their int8-grid copies, which are not)."""
         def stack(prefix, attr):
             convs = [getattr(self, f"{prefix}_{i}") for i in range(len(self.dilations))]
             if attr == "kernel":
-                ts = [c.kernel().permute(2, 1, 0) for c in convs]  # [k, Cin, Cout]
+                ts = [c.compute_kernel().permute(2, 1, 0) for c in convs]  # [k, Cin, Cout]
             else:
                 ts = [c.bias for c in convs]
             return torch.stack(ts).to(dtype).contiguous()
         return (stack("c1", "kernel"), stack("c1", "bias"),
                 stack("c2", "kernel"), stack("c2", "bias"))
+
+
+class ResBlock2(nn.Module):
+    """The lighter MRF block: per dilation x += c_i(lrelu(x))."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilations: Tuple[int, ...] = (1, 3),
+                 quant_int8: Union[bool, str] = False, dtype=torch.float32):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
+        self.dtype = dtype
+        for i, d in enumerate(self.dilations):
+            self.add_module(f"c_{i}", Conv1d(channels, channels, kernel_size, dilation=d,
+                                             weight_norm=True, kernel_init="normal",
+                                             quant_int8=quant_int8, dtype=dtype))
+
+    def module_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i in range(len(self.dilations)):
+            x = getattr(self, f"c_{i}")(x, act_slope=LRELU_SLOPE) + x
+        return x
 
 
 class HiFiGANGenerator(FoldCache):
@@ -86,28 +121,40 @@ class HiFiGANGenerator(FoldCache):
                  upsample_rates: Sequence[int] = (8, 8, 4, 2),
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
-                 gin_channels: int = 0, dtype=torch.float32):
+                 gin_channels: int = 0, quant_int8: Union[bool, str] = False,
+                 dtype=torch.float32):
         super().__init__()
-        if resblock != "1":
-            raise NotImplementedError("ResBlock2 is not ported (no configuration uses it)")
+        if resblock not in ("1", "2"):
+            raise ValueError(f"resblock must be \"1\" or \"2\", got {resblock!r}")
+        self.resblock = resblock
+        self.quant_int8 = check_quant_int8(quant_int8)
+        q = self.quant_int8
+        res_cls = ResBlock1 if resblock == "1" else ResBlock2
         self.kernel_sizes = tuple(resblock_kernel_sizes)
         self.dilations = tuple(tuple(d) for d in resblock_dilation_sizes)
         self.n_stages = len(upsample_rates)
         self.dtype = dtype
         c0 = upsample_initial_channel
         self.conv_pre = Conv1d(initial_channel, c0, 7, padding=(3, 3), weight_norm=True,
-                               dtype=dtype)
+                               quant_int8=q, dtype=dtype)
         self.cond = Linear(gin_channels, c0, dtype=dtype) if gin_channels > 0 else None
         ch = c0
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch_out = c0 // (2 ** (i + 1))
             self.add_module(f"up_{i}", ConvTranspose1d(
                 ch, ch_out, k, stride=u, padding=(k - u) // 2, weight_norm=True,
-                kernel_init="normal", dtype=dtype))
+                kernel_init="normal", quant_int8=q, dtype=dtype))
             for j, (rk, rd) in enumerate(zip(self.kernel_sizes, self.dilations)):
-                self.add_module(f"res_{i}_{j}", ResBlock1(ch_out, rk, rd, dtype=dtype))
+                self.add_module(f"res_{i}_{j}", res_cls(ch_out, rk, rd, quant_int8=q,
+                                                        dtype=dtype))
             ch = ch_out
-        self.conv_post = Conv1d(ch, 1, 7, padding=(3, 3), weight_norm=True, dtype=dtype)
+        self.conv_post = Conv1d(ch, 1, 7, padding=(3, 3), weight_norm=True, quant_int8=q,
+                                dtype=dtype)
+        # the blocks' mean divides by a tensor: PyTorch would multiply a CUDA
+        # tensor by the reciprocal of a host number, an ulp off the quotient
+        # at times, and a W8A8 decoder carries one moved code on to many
+        self.register_buffer("block_count", torch.tensor(float(len(self.kernel_sizes))),
+                             persistent=False)
 
     def mrf_weights(self) -> List[List[Block]]:
         """Per stage, its blocks' weights in ops/mrf.py's layout, folded
@@ -121,16 +168,18 @@ class HiFiGANGenerator(FoldCache):
         x = self.conv_pre(x)
         if g is not None and self.cond is not None:
             x = x + self.cond(g)[:, None, :]
-        stages = self.mrf_weights() if fused_mrf else None
+        # K1 takes ResBlock1 stages in the float and "w8" modes
+        use_k1 = fused_mrf and self.resblock == "1" and self.quant_int8 is not True
+        stages = self.mrf_weights() if use_k1 else None
         n_blocks = len(self.kernel_sizes)
         for i in range(self.n_stages):
-            x = getattr(self, f"up_{i}")(leaky_relu(x, LRELU_SLOPE)).contiguous()
-            if fused_mrf:
+            x = getattr(self, f"up_{i}")(x, act_slope=LRELU_SLOPE).contiguous()
+            if use_k1:
                 x = mrf(x, stages[i], self.kernel_sizes, self.dilations)
                 continue
             xs = getattr(self, f"res_{i}_0").module_forward(x)
             for j in range(1, n_blocks):
                 xs = xs + getattr(self, f"res_{i}_{j}").module_forward(x)
-            x = xs / n_blocks
-        x = self.conv_post(leaky_relu(x, 0.01))  # torch's default slope, as in JAX
+            x = xs / self.block_count
+        x = self.conv_post(x, act_slope=0.01)  # torch's default slope, as in JAX
         return torch.tanh(x)

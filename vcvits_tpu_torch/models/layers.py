@@ -14,6 +14,9 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
   bf16 conv that accumulates in float32, and torch's CPU bf16 conv is
   wrong at some shapes (kernel 8 or 128 with 4 or 8 channels a group, in
   torch 2.13: errors as large as the outputs). On the card cuDNN runs it.
+* The decoder's `Conv1d` / `ConvTranspose1d` take `quant_int8` (JAX's int8
+  modes, ops/int8_conv.py); their int8 weights are folded and quantized
+  once on the host and cached (`host_kernel`, `FoldCache`).
 * Every leaf module has `reset_parameters(generator)` mirroring the JAX
   package's initialiser for that parameter, so `init_weights(model, seed)`
   gives a seeded model with no checkpoint.
@@ -21,12 +24,16 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vcvits_tpu_torch.ops.int8_conv import (
+    conv1d_w8a8, dequantize, prepare_w8a8, quantize_weight_per_channel)
 
 LRELU_SLOPE = 0.1
 
@@ -171,7 +178,29 @@ def spectral_normalize(weight: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
     return (weight / torch.clamp_min(sigma, 1e-12)).to(weight.dtype)
 
 
-class _ConvBase(nn.Module):
+class FoldCache(nn.Module):
+    """A module whose forward uses tensors derived from its parameters
+    (weight norm folded, kernels stacked for a CUDA kernel). `folded(build)`
+    runs `build` once and reuses its result until a parameter changes: the
+    key is each parameter's storage and in-place write count, which
+    load_state_dict and every in-place edit move, and .to() and the other
+    conversions drop the cache."""
+
+    _folded = None
+
+    def folded(self, build):
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                self._folded = (key, build())
+        return self._folded[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded = None
+        return super()._apply(fn, *args, **kwargs)
+
+
+class _ConvBase(FoldCache):
     """A conv kernel with optional weight norm over every axis but the first
     (out channels for Conv1d / Conv2dNorm, in channels for ConvTranspose1d)
     or spectral norm, and a bias."""
@@ -200,13 +229,67 @@ class _ConvBase(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
-    def kernel(self) -> torch.Tensor:
-        """The float32 kernel, weight norm or spectral norm folded."""
+    def host_kernel(self) -> torch.Tensor:
+        """The kernel folded on the host from host copies of the parameters,
+        rounded to the compute dtype: what the int8 modes quantize, once, so
+        that the card's codes and scales are the CPU's bit for bit (a norm
+        summed in another order on the card would move a code at a rounding
+        boundary, and a W8A8 decoder carries one moved code on to many)."""
+        return self.kernel(host=True).to(self.dtype)
+
+    def kernel(self, host: bool = False) -> torch.Tensor:
+        """The float32 kernel, weight norm or spectral norm folded (from host
+        copies of the parameters, without a graph, with `host`)."""
+        get = (lambda p: p.detach().cpu()) if host else (lambda p: p)
         if self.weight_norm:
-            return self.g * self.v / torch.clamp_min(_norm_except(self.v, 0), 1e-12)
+            v = get(self.v)
+            return get(self.g) * v / torch.clamp_min(_norm_except(v, 0), 1e-12)
         if self.spectral_norm:
-            return spectral_normalize(self.v)
-        return self.weight
+            return spectral_normalize(get(self.v))
+        return get(self.weight)
+
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+def check_quant_int8(quant_int8) -> Union[bool, str]:
+    """The int8 decoder mode: False (float), True (dynamic W8A8) or "w8"
+    (weight-only), as the JAX package's `quant_int8`."""
+    if quant_int8 in (None, False):
+        return False
+    if quant_int8 is True or quant_int8 == "w8":
+        return quant_int8
+    raise ValueError(f"quant_int8 must be False, True (W8A8) or \"w8\", got {quant_int8!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _transpose_placement(kernel_size: int, stride: int, padding: int):
+    """Where each tap of a transposed conv lands in its phase-decomposed
+    conv (the port's copy of vcvits_tpu/ops/folded_conv.py's placement rule
+    at fold_in 1): output frame t * stride + f reads input frame t + m
+    through tap u wherever (f + padding - u) % stride == 0, m = (f + padding
+    - u) // stride. Returns ((u, f, m), ...), min m, max m."""
+    k, s, p = kernel_size, stride, padding
+    entries = tuple((u, f, (f + p - u) // s) for f in range(s) for u in range(k)
+                    if (f + p - u) % s == 0)
+    ms = [m for _, _, m in entries]
+    return entries, min(ms), max(ms)
+
+
+def fold_transpose_kernel(w: torch.Tensor, stride: int, padding: int
+                          ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """A ConvTranspose1d kernel [Ci, Co, k] -> the kernel [stride * Co, Ci,
+    K'] of the same transposed conv as a stride-1 conv over the input,
+    column f * Co + o computing output phase f (frame t * stride + f) of
+    channel o, and that conv's (pad_lo, pad_hi). Its output [B, T, stride *
+    Co] is the transposed conv's [B, T * stride, Co] after a reshape, where
+    kernel_size - 2 * padding == stride."""
+    ci, co, k = w.shape
+    entries, qmin, qmax = _transpose_placement(k, stride, padding)
+    wf = w.new_zeros(stride, co, ci, qmax - qmin + 1)
+    for u, f, m in entries:
+        wf[f, :, :, m - qmin] = w[:, :, u].t()
+    return wf.reshape(stride * co, ci, qmax - qmin + 1), (-qmin, qmax)
 
 
 class Conv1d(_ConvBase):
@@ -216,13 +299,20 @@ class Conv1d(_ConvBase):
     "valid", or an explicit (lo, hi) pair. `weight_norm=True` stores (v, g)
     and folds them per call; `spectral_norm=True` stores `v` and divides it
     by its largest singular value per call (`spectral_normalize`).
+    `quant_int8` (the decoder's, inference only): True runs the dynamic W8A8
+    conv of ops/int8_conv.py (kernels Q2 and Q1 on the card) on the kernel
+    folded in the compute dtype and quantized per output channel, "w8" the
+    ordinary conv on that kernel's int8-grid copy; either is folded once
+    and cached. `forward(x, act_slope)` applies leaky_relu(act_slope) to x
+    first, inside the W8A8 quantizer.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  padding: Union[str, Tuple[int, int]] = "same", bias: bool = True,
                  weight_norm: bool = False, kernel_init: str = "lecun_normal",
-                 spectral_norm: bool = False, dtype=torch.float32):
+                 spectral_norm: bool = False, quant_int8: Union[bool, str] = False,
+                 dtype=torch.float32):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
         if padding == "same":
@@ -231,17 +321,35 @@ class Conv1d(_ConvBase):
             self.pad = (0, 0)
         else:
             self.pad = tuple(padding)
+        self.quant_int8 = check_quant_int8(quant_int8)
+        if self.quant_int8 is True and (stride != 1 or groups != 1):
+            raise ValueError("the W8A8 conv takes stride 1 and groups 1")
         self.dtype = dtype
         self._make_params((out_channels, in_channels // groups, kernel_size), out_channels,
                           bias, weight_norm, kernel_init, spectral_norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def compute_kernel(self) -> torch.Tensor:
+        """The kernel the float path convolves with, in the compute dtype; in
+        "w8" mode its int8-grid copy (cached)."""
         dt = self.dtype
+        if self.quant_int8 == "w8":
+            return self.folded(lambda: dequantize(
+                *quantize_weight_per_channel(self.host_kernel()), dt).to(self.device()))
+        return self.kernel().to(dt)
+
+    def forward(self, x: torch.Tensor, act_slope: Optional[float] = None) -> torch.Tensor:
+        dt = self.dtype
+        if self.quant_int8 is True:
+            qw = self.folded(lambda: prepare_w8a8(self.host_kernel()).to(self.device()))
+            return conv1d_w8a8(x.to(dt).contiguous(), qw, self.pad, self.bias, self.dilation,
+                               act_slope)
+        if act_slope is not None:
+            x = leaky_relu(x, act_slope)
         b = self.bias.to(dt) if self.bias is not None else None
         xt = x.to(dt).transpose(1, 2)
         if self.pad != (0, 0):
             xt = F.pad(xt, self.pad)
-        y = conv_op(F.conv1d, xt, self.kernel().to(dt), b, stride=self.stride,
+        y = conv_op(F.conv1d, xt, self.compute_kernel(), b, stride=self.stride,
                     dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
@@ -252,20 +360,57 @@ class ConvTranspose1d(_ConvBase):
     out_len = (T-1)*stride - 2*padding + kernel_size. Kernel [in, out, k];
     weight norm is per INPUT channel (PyTorch's weight_norm dim=0 on this
     layout), as in vcvits_tpu/models/layers.py:336-342.
+    With `quant_int8` it runs as the JAX package's default (fold_tail) path
+    computes it: the phase-decomposed conv of `fold_transpose_kernel`,
+    quantized per column, so each (output phase, channel) has its own scale
+    (a phase uses only its own taps); W8A8 through ops/int8_conv.py, "w8"
+    as an ordinary conv on the dequantized phase kernel; the bias rounded
+    to the compute dtype, as that path does. It needs kernel_size - 2 *
+    padding == stride (every HiFi-GAN upsampler).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 0, bias: bool = True,
                  weight_norm: bool = False, kernel_init: str = "lecun_normal",
-                 dtype=torch.float32):
+                 quant_int8: Union[bool, str] = False, dtype=torch.float32):
         super().__init__()
         self.stride, self.padding = stride, padding
+        self.quant_int8 = check_quant_int8(quant_int8)
+        if self.quant_int8 and kernel_size - 2 * padding != stride:
+            raise ValueError("the int8 transposed conv needs kernel_size - 2 * padding == stride")
         self.dtype = dtype
         self._make_params((in_channels, out_channels, kernel_size), out_channels, bias,
                           weight_norm, kernel_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def phase_weights(self):
+        """(kernel, (pad_lo, pad_hi), bias) of the int8 phase-decomposed conv,
+        cached: a `QWeight` (W8A8) or the dequantized [stride * Co, Ci, K']
+        kernel in the compute dtype ("w8"), and the bias tiled per phase in
+        float32."""
+        dt, s = self.dtype, self.stride
+
+        def build():
+            dev = self.device()
+            wf, pad = fold_transpose_kernel(self.host_kernel(), s, self.padding)
+            b = None if self.bias is None else self.bias.to(dt).float().repeat(s).contiguous()
+            if self.quant_int8 is True:
+                return prepare_w8a8(wf).to(dev), pad, b
+            return dequantize(*quantize_weight_per_channel(wf), dt).to(dev), pad, b
+        return self.folded(build)
+
+    def forward(self, x: torch.Tensor, act_slope: Optional[float] = None) -> torch.Tensor:
         dt = self.dtype
+        if self.quant_int8 is True:
+            qw, pad, b = self.phase_weights()
+            y = conv1d_w8a8(x.to(dt).contiguous(), qw, pad, b, 1, act_slope)
+            return y.reshape(y.shape[0], -1, qw.co // self.stride)
+        if act_slope is not None:
+            x = leaky_relu(x, act_slope)
+        if self.quant_int8 == "w8":
+            w, pad, b = self.phase_weights()
+            xt = F.pad(x.to(dt).transpose(1, 2), pad)
+            y = conv_op(F.conv1d, xt, w, None if b is None else b.to(dt)).transpose(1, 2)
+            return y.reshape(y.shape[0], -1, w.shape[0] // self.stride)
         b = self.bias.to(dt) if self.bias is not None else None
         y = conv_op(F.conv_transpose1d, x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
                     stride=self.stride, padding=self.padding)
@@ -297,28 +442,6 @@ class Conv2dNorm(_ConvBase):
             xt = F.pad(xt, self.pad)
         y = conv_op(F.conv2d, xt, self.kernel().to(dt), self.bias.to(dt), stride=self.strides)
         return y.permute(0, 2, 3, 1)
-
-
-class FoldCache(nn.Module):
-    """A module whose forward uses tensors derived from its parameters
-    (weight norm folded, kernels stacked for a CUDA kernel). `folded(build)`
-    runs `build` once and reuses its result until a parameter changes: the
-    key is each parameter's storage and in-place write count, which
-    load_state_dict and every in-place edit move, and .to() and the other
-    conversions drop the cache."""
-
-    _folded = None
-
-    def folded(self, build):
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._folded is None or self._folded[0] != key:
-            with torch.no_grad():
-                self._folded = (key, build())
-        return self._folded[1]
-
-    def _apply(self, fn, *args, **kwargs):
-        self._folded = None
-        return super()._apply(fn, *args, **kwargs)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -20,7 +20,7 @@ plain path. Random draws come from explicit generators, or are injected.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -48,15 +48,16 @@ class SynthesizerSVC(nn.Module):
                  upsample_rates: Tuple[int, ...], upsample_initial_channel: int,
                  upsample_kernel_sizes: Tuple[int, ...], hubert_channels: int, num_pitch: int,
                  n_speakers: int = 0, gin_channels: int = 0,
-                 hubert_cfg: Optional[HubertConfig] = None, dec_quant_int8: bool = False,
+                 hubert_cfg: Optional[HubertConfig] = None,
+                 dec_quant_int8: Union[bool, str] = False,
                  spec_channels: int = 1025, segment_size: int = 32, p_dropout: float = 0.0,
                  dtype=torch.float32, device="cuda", seed: Optional[int] = 0):
         """Builds on `device` ("cuda" by default; raises when no GPU is
         present unless device="cpu"). `seed` initialises the weights as the
-        JAX package does; pass seed=None and load a state dict instead."""
+        JAX package does; pass seed=None and load a state dict instead.
+        `dec_quant_int8` selects the int8 decoder (models/hifigan.py): True
+        for dynamic W8A8, "w8" for weight-only; inference only."""
         super().__init__()
-        if dec_quant_int8:
-            raise NotImplementedError("the int8 decoder is not ported")
         device = resolve_device(device)
         self.dtype = dtype
         self.n_speakers = n_speakers
@@ -67,7 +68,7 @@ class SynthesizerSVC(nn.Module):
         self.dec = HiFiGANGenerator(
             inter_channels, resblock, resblock_kernel_sizes, resblock_dilation_sizes,
             upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
-            gin_channels=gin_channels, dtype=dtype)
+            gin_channels=gin_channels, quant_int8=dec_quant_int8, dtype=dtype)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, 4,
                                           gin_channels=gin_channels, dtype=dtype)
         self.emb_g = Embedding(n_speakers, gin_channels, dtype=dtype) if n_speakers >= 1 \
@@ -80,8 +81,10 @@ class SynthesizerSVC(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: Config, dtype=torch.float32, device="cuda",
-                    seed: Optional[int] = 0,
-                    hubert_cfg: Optional[HubertConfig] = None) -> "SynthesizerSVC":
+                    seed: Optional[int] = 0, hubert_cfg: Optional[HubertConfig] = None,
+                    dec_quant_int8: Union[bool, str, None] = None) -> "SynthesizerSVC":
+        """The model of `cfg`; `dec_quant_int8`, where given, overrides the
+        config's, as `VoiceConverter(quant_int8=...)` clones JAX's."""
         m = cfg.model
         return cls(
             inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
@@ -94,7 +97,8 @@ class SynthesizerSVC(nn.Module):
             upsample_kernel_sizes=m.upsample_kernel_sizes,
             hubert_channels=m.hubert_channels, num_pitch=m.num_pitch,
             n_speakers=cfg.data.n_speakers, gin_channels=m.gin_channels,
-            hubert_cfg=hubert_cfg, dec_quant_int8=m.dec_quant_int8,
+            hubert_cfg=hubert_cfg,
+            dec_quant_int8=m.dec_quant_int8 if dec_quant_int8 is None else dec_quant_int8,
             spec_channels=cfg.data.spec_channels,
             segment_size=cfg.train.segment_size // cfg.data.hop_length,
             p_dropout=m.p_dropout, dtype=dtype, device=device, seed=seed)

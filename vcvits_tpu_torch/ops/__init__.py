@@ -4,6 +4,8 @@
 * `flow_coupling` (K2): one residual-coupling reverse, csrc/flow_coupling.cu.
 * `stft_mel` (K3): STFT magnitude + log-mel in one pass, csrc/stft_mel.cu.
 * `fused_gate` (K5): the WaveNet gate, forward and backward, csrc/fused_gate.cu.
+* `int8_conv` (Q1, Q2): the W8A8 int8 decoder conv and its rows' maxima,
+  csrc/int8_conv.cu (no Pallas counterpart: JAX runs an XLA int8 conv).
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
 CUDA tensor; `_build.LAUNCHES` counts the kernel launches.

@@ -26,7 +26,9 @@ The weights come from the port's own `SynthesizerSVC` modules, weight norm
 folded once at `bind`. The chunk counter and the stream's length are
 Python ints, so no coordinate sentinel limits how long a stream runs.
 The content encoder stays windowed in `streaming.py` (its attention is
-global). ResBlock2 is not ported and raises.
+global). The decoder streams both res block kinds (ResBlock1 and
+ResBlock2), always on the float weights: as in JAX, the int8 decoder modes
+apply to the offline decoder only.
 """
 
 from __future__ import annotations
@@ -229,14 +231,19 @@ def _flow_reverse_stream(ctx: _Ctx, s: S, flows: List[Dict], g: Optional[torch.T
 
 # ---------------------------------------------------------------- decoder
 
-def _resblock_stream(ctx: _Ctx, s: S, convs: List[Tuple[ConvWeights, ConvWeights]],
+def _resblock_stream(ctx: _Ctx, s: S,
+                     convs: List[Tuple[ConvWeights, Optional[ConvWeights]]],
                      dilations: Sequence[int], tag: str) -> S:
-    """Streaming ResBlock1: per dilation s += c2(lrelu(c1(lrelu(s))))."""
-    for i, (((k1, b1), (k2, b2)), d) in enumerate(zip(convs, dilations)):
+    """Streaming ResBlock1, per dilation s += c2(lrelu(c1(lrelu(s)))), or
+    ResBlock2 (no second conv), per dilation s += c(lrelu(s))."""
+    for i, (((k1, b1), second), d) in enumerate(zip(convs, dilations)):
         xt = S(leaky_relu(s.x, LRELU_SLOPE), s.D, s.F, s.R)
-        t1 = _sconv(ctx, xt, f"{tag}/c1_{i}", k1, b1, dilation=d)
-        t1 = S(leaky_relu(t1.x, LRELU_SLOPE), t1.D, t1.F, t1.R)
-        t2 = _sconv(ctx, t1, f"{tag}/c2_{i}", k2, b2)
+        if second is None:
+            t2 = _sconv(ctx, xt, f"{tag}/c_{i}", k1, b1, dilation=d)
+        else:
+            t1 = _sconv(ctx, xt, f"{tag}/c1_{i}", k1, b1, dilation=d)
+            t1 = S(leaky_relu(t1.x, LRELU_SLOPE), t1.D, t1.F, t1.R)
+            t2 = _sconv(ctx, t1, f"{tag}/c2_{i}", *second)
         sk = _sdelay(ctx, s, f"{tag}/sk_{i}", t2.D - s.D)
         s = S(t2.x + sk.x, t2.D, s.F, s.R)
     return s
@@ -282,8 +289,6 @@ class StreamingFlowDecoder:
     """
 
     def __init__(self, model, chunk_frames: int, batch: int = 1, dtype=torch.float32):
-        if model.resblock != "1":
-            raise NotImplementedError("ResBlock2 is not ported (no configuration uses it)")
         self.model = model
         self.chunk_frames = int(chunk_frames)
         self.batch = batch
@@ -326,6 +331,8 @@ class StreamingFlowDecoder:
                       for i in range(d.n_stages)],
                "res": [[[(_conv1d_kernel(getattr(blk, f"c1_{t}"), dt),
                           _conv1d_kernel(getattr(blk, f"c2_{t}"), dt))
+                         if d.resblock == "1" else
+                         (_conv1d_kernel(getattr(blk, f"c_{t}"), dt), None)
                          for t in range(len(blk.dilations))]
                         for blk in (getattr(d, f"res_{i}_{j}")
                                     for j in range(len(d.kernel_sizes)))]
