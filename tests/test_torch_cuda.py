@@ -32,7 +32,12 @@ daemon batch of 4 on the card matches each request's solo conversion to
 1e-3 absolute. The W8A8 int8 conv (Q1) sums exact integers, as its plain
 version does in float64, and dequantizes in the same float32 order: its
 outputs are within 1 ulp of the output type; its rows' maxima (Q2) and
-the scales made on the card are the plain version's bit for bit.
+the scales made on the card are the plain version's bit for bit. The
+monotonic alignment search (M1) makes the same float32 adds as its plain
+version, in the same order: its path is bit-equal, at the TTS step's
+shapes and at T_x above the block size (and with its decisions in the
+global scratch). TTS `infer` on the card matches the CPU's plain path at
+noise 0 to 1e-3 absolute, with equal lengths, masks and alignment.
 """
 
 import numpy as np
@@ -664,3 +669,90 @@ def test_int8_scales_on_card_equal_host(dev):
     assert torch.equal(prepare_w8a8(w.to(dev)).scale.cpu(), prepare_w8a8(w).scale)
     x = torch.tensor(rng.standard_normal((64, 300, 32)), dtype=torch.float32)
     assert torch.equal(act_scale(row_absmax(x.to(dev), 0.1)).cpu(), act_scale(row_absmax(x, 0.1)))
+
+
+# ------------------------------------------------------------------ M1
+def _mas_inputs(rng, b, t_x, t_y, dev, ties=False):
+    v = rng.standard_normal((b, t_y, t_x)) * 30
+    if ties:
+        v = np.round(v / 10)
+    xl = rng.integers(max(t_x // 3, 1), t_x + 1, b)
+    yl = np.maximum(rng.integers(t_y // 3, t_y + 1, b), xl)
+    xl[-1], yl[-1] = t_x, t_y
+    return (torch.tensor(v, dtype=torch.float32, device=dev), torch.tensor(xl, device=dev),
+            torch.tensor(yl, device=dev))
+
+
+@pytest.mark.parametrize("b,t_x,t_y,ties", [(16, 192, 750, False), (16, 192, 750, True),
+                                            (3, 700, 1500, False), (2, 1100, 2600, False),
+                                            (4, 33, 5, False)])
+def test_maximum_path_kernel_bit_equal(dev, b, t_x, t_y, ties):
+    """The TTS step's shapes (B 16, text bucket 192, 750 frames), T_x above
+    the 256-thread block, and decisions past shared memory (2 x 1100 x
+    2600: the global scratch)."""
+    from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, \
+        maximum_path_plain
+
+    value, xl, yl = _mas_inputs(np.random.default_rng(t_x), b, t_x, t_y, dev, ties)
+    before = _build.LAUNCHES["monotonic_align"]
+    got = maximum_path(value, xl, yl)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["monotonic_align"] - before == 1
+    ref = maximum_path_plain(value.transpose(1, 2), length_mask(xl, yl, t_x, t_y))
+    assert got.shape == (b, t_x, t_y) and got.dtype == torch.float32
+    assert int((got != ref).sum()) == 0
+
+
+def test_maximum_path_kernel_empty_rows_and_refusals(dev):
+    from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, \
+        maximum_path_plain
+
+    value = torch.randn(3, 40, 9, device=dev)
+    xl, yl = torch.tensor([0, 9, 4], device=dev), torch.tensor([40, 0, 60], device=dev)
+    ref = maximum_path_plain(value.transpose(1, 2), length_mask(xl, yl, 9, 40))
+    assert torch.equal(maximum_path(value, xl, yl), ref)
+    with pytest.raises(ValueError, match="T_x"):
+        maximum_path(torch.zeros(1, 10, 2049, device=dev), torch.ones(1, device=dev),
+                     torch.ones(1, device=dev))
+    with pytest.raises(ValueError, match="backward"):
+        maximum_path(value.requires_grad_(), xl, yl)
+
+
+TINY_TTS = {
+    "train": {"segment_size": 2048},
+    "data": {"filter_length": 1024, "win_length": 1024, "hop_length": 512,
+             "n_mel_channels": 8, "n_speakers": 4},
+    "model": {"inter_channels": 64, "hidden_channels": 64, "filter_channels": 128,
+              "n_heads": 2, "n_layers": 2, "kernel_size": 3, "gin_channels": 16,
+              "upsample_initial_channel": 512, "resblock_kernel_sizes": [3, 7],
+              "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5]]},
+}
+
+
+def test_tts_infer_on_card_matches_cpu(dev):
+    """SynthesizerTTS.infer at noise 0 on the card (K2 reverse, K1 decoder)
+    against the CPU's plain path on the same weights: lengths, masks and
+    alignment equal, the waveform to 1e-3; K2 4 and K1 launches a call."""
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.models.synthesizer_tts import SynthesizerTTS
+
+    cfg = Config.from_dict(TINY_TTS)
+    cpu = SynthesizerTTS.from_config(cfg, device="cpu", seed=5).eval()
+    with torch.no_grad():  # off the identity flow and the near-silent decoder
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel()))
+                   * 0.02)
+    card = SynthesizerTTS.from_config(cfg, device=dev, seed=None).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randint(1, 150, (2, 24), generator=torch.Generator().manual_seed(0))
+    xl, sid = torch.tensor([24, 15]), torch.tensor([1, 3])
+    kw = dict(noise_scale=0.0, noise_scale_w=0.0, length_scale=1.2, max_frames=160)
+    ref = cpu.infer(x, xl, sid, **kw)
+    before = dict(_build.LAUNCHES)
+    got = card.infer(x.to(dev), xl.to(dev), sid.to(dev), **kw)
+    torch.cuda.synchronize()
+    rose = {k: _build.LAUNCHES[k] - before.get(k, 0) for k in ("flow_coupling_reverse", "mrf")}
+    assert rose["flow_coupling_reverse"] == 4 and rose["mrf"] > 0
+    assert torch.equal(got[2].cpu(), ref[2]) and torch.equal(got[1].cpu(), ref[1])
+    assert ref[2].sum() > 0
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].numpy(), atol=1e-3, rtol=0)

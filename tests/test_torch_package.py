@@ -3,11 +3,15 @@
 * No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
   flax, optax, orbax or vcvits_tpu.
 * Importing the package, its trainer, data pipeline, metrics, serving and
-  streaming modules, converters, the int8 conv and CLIs loads no JAX.
+  streaming modules, converters, the int8 conv, the TTS path (text front
+  end, models, MAS, synthesis, train step, trainer, dataset) and CLIs
+  loads no JAX.
 * Entry points (conversion, flow-swap conversion, the train step, the
   trainer, the device batcher, the metrics, loading a checkpoint, the
   HuBERT feature dump, the serving CLI with and without the int8 decoder,
-  the inference CLI) refuse to run on the CPU unless asked to.
+  the inference CLI; TTS synthesis and its checkpoint loader, the TTS
+  model, train step and trainer, both TTS CLIs) refuse to run on the CPU
+  unless asked to.
 * On CPU tensors the kernel wrappers take their plain versions and count
   no launch; K3's wrapper refuses an input that requires grad.
 * The port's config loads the repo's JSON configs exactly as JAX's does.
@@ -30,6 +34,7 @@ from vcvits_tpu_torch.ops.flow_coupling import coupling_reverse, coupling_revers
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.int8_conv import (
     conv1d_w8a8, conv1d_w8a8_plain, prepare_w8a8, row_absmax, row_absmax_plain)
+from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, maximum_path_plain
 from vcvits_tpu_torch.ops.mrf import mrf, mrf_plain
 from vcvits_tpu_torch.ops.stft_mel import (
     spectrogram, spectrogram_mel, spectrogram_mel_plain, spectrogram_plain)
@@ -72,7 +77,12 @@ def test_import_loads_no_jax():
             "vcvits_tpu_torch.cli.infer, vcvits_tpu_torch.cli.filelist, "
             "vcvits_tpu_torch.cli.split, vcvits_tpu_torch.cli.convert_checkpoint, "
             "vcvits_tpu_torch.convert.vcvits_torch, vcvits_tpu_torch.convert.export_torch, "
-            "vcvits_tpu_torch.convert.hubert_torch, vcvits_tpu_torch.ops.int8_conv; "
+            "vcvits_tpu_torch.convert.hubert_torch, vcvits_tpu_torch.ops.int8_conv, "
+            "vcvits_tpu_torch.text, vcvits_tpu_torch.models.synthesizer_tts, "
+            "vcvits_tpu_torch.ops.monotonic_align, vcvits_tpu_torch.infer_tts, "
+            "vcvits_tpu_torch.train.tts_step, vcvits_tpu_torch.train.tts_trainer, "
+            "vcvits_tpu_torch.data.tts_dataset, vcvits_tpu_torch.cli.infer_tts, "
+            "vcvits_tpu_torch.cli.train_tts; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -87,10 +97,16 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
     from vcvits_tpu_torch.data.device_cache import DeviceBatcher
     from vcvits_tpu_torch.data.preload import dump_hubert_features
     from vcvits_tpu_torch.eval import evaluate_pair
+    from vcvits_tpu_torch.cli import infer_tts as infer_tts_cli
+    from vcvits_tpu_torch.cli import train_tts as train_tts_cli
     from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.infer_tts import TTSSynthesizer
     from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+    from vcvits_tpu_torch.models.synthesizer_tts import SynthesizerTTS
     from vcvits_tpu_torch.train.step import TrainStep
     from vcvits_tpu_torch.train.trainer import Trainer
+    from vcvits_tpu_torch.train.tts_step import TTSTrainStep
+    from vcvits_tpu_torch.train.tts_trainer import TTSTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(os.path.join(ROOT, "configs", "48k_base.json"))
@@ -104,7 +120,15 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
                   lambda: dump_hubert_features([], cfg, torch.nn.Linear(1, 1)),
                   lambda: serve_cli.main(["--workdir", str(tmp_path)]),
                   lambda: serve_cli.main(["--workdir", str(tmp_path), "--int8-decoder"]),
-                  lambda: infer_cli.main(["in.wav", "out.wav", "--workdir", str(tmp_path)])):
+                  lambda: infer_cli.main(["in.wav", "out.wav", "--workdir", str(tmp_path)]),
+                  lambda: TTSSynthesizer(cfg), lambda: SynthesizerTTS.from_config(cfg),
+                  lambda: TTSTrainStep(cfg), lambda: TTSTrainer(cfg, workdir=str(tmp_path)),
+                  lambda: TTSSynthesizer.from_checkpoint(str(tmp_path)),
+                  lambda: infer_tts_cli.main(["Hi.", "out.wav", "--workdir", str(tmp_path)]),
+                  lambda: train_tts_cli.main(["-c", os.path.join(ROOT, "configs",
+                                                                  "48k_base.json"),
+                                              "--filelist", "f.txt",
+                                              "--workdir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
@@ -184,6 +208,11 @@ def test_wrappers_take_plain_version_on_cpu():
     a = torch.tensor(rng.standard_normal((2, 9, 2 * h)), dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((2, 1, 2 * h)), dtype=torch.float32)
     assert torch.equal(fused_gate(a, b, h), fused_add_tanh_sigmoid_multiply(a, b, h))
+
+    scores = torch.tensor(rng.standard_normal((2, 12, 5)), dtype=torch.float32)
+    xl, yl = torch.tensor([5, 3]), torch.tensor([12, 7])
+    assert torch.equal(maximum_path(scores, xl, yl),
+                       maximum_path_plain(scores.transpose(1, 2), length_mask(xl, yl, 5, 12)))
     assert sum(_build.LAUNCHES.values()) == 0
 
 

@@ -5,16 +5,16 @@ functions of ops/stft_mel.py, and held on the CPU:
 
 * `mel_bands` packs mel_filterbank's [n_mels, F] into one contiguous band
   per filter; the bands rebuild the filterbank exactly.
-* `fft_twiddles` equals exp(-2 pi i k / n_fft) and each stage's factors to
-  float32 rounding (built in float64, rounded once: 1 ulp of 1, 6e-8).
+* `fft_twiddles` is a float64 table that equals exp(-2 pi i k / n_fft)
+  and each stage's factors to float64 rounding (1e-15).
 * A NumPy model of the kernel's algorithm (pack, the Stockham schedule of
   `fft_stages` with the table's twiddles, the split step, the magnitude,
-  the band sums) in float32 matches the plain version
-  (`spectrogram_mel_plain`, a direct DFT) and JAX's
-  `spectrogram_mel_fused` on its XLA path, with the tolerances the CUDA
-  tests use: spec max |err| <= 1e-4 x max |spec|, log-mel <= 1e-4
-  absolute. The model's Stockham FFT alone matches np.fft.fft to 1e-5 of
-  the largest bin (float32 butterflies).
+  the band sums) in float64 from fp32 samples to fp32 outputs, as the
+  kernel computes, matches the plain version (`spectrogram_mel_plain`, a
+  direct DFT) and JAX's `spectrogram_mel_fused` on its XLA path, with the
+  tolerances the CUDA tests use: spec max |err| <= 1e-4 x max |spec|,
+  log-mel <= 1e-4 absolute. The model's Stockham FFT alone matches
+  np.fft.fft to 1e-12 of the largest bin (float64 butterflies).
 * `check_kernel_sizes` refuses what the kernel does not take, with the
   rule in the message, and takes every configuration in configs/.
 """
@@ -76,32 +76,32 @@ def test_bands_refuse_a_split_filter():
 def test_twiddles_are_exp_to_float32_rounding(n_fft):
     m = n_fft // 2
     table = fft_twiddles(n_fft)
-    assert table.shape == (n_fft, 2) and table.dtype == np.float32
-    got = table[:, 0].astype(np.float64) + 1j * table[:, 1]
+    assert table.shape == (n_fft, 2) and table.dtype == np.float64
+    got = table[:, 0] + 1j * table[:, 1]
     want = np.exp(-2j * np.pi * np.arange(m) / n_fft)
-    np.testing.assert_allclose(got[:m], want, rtol=0, atol=6e-8)
+    np.testing.assert_allclose(got[:m], want, rtol=0, atol=1e-15)
     row = m
     for radix, p in fft_stages(m):
         r, k = np.arange(1, radix)[:, None], np.arange(p)[None, :]
         stage = np.exp(-2j * np.pi * r * k / (p * radix)).ravel()
-        np.testing.assert_allclose(got[row:row + len(stage)], stage, rtol=0, atol=6e-8)
+        np.testing.assert_allclose(got[row:row + len(stage)], stage, rtol=0, atol=1e-15)
         # the same powers of W as the split step's rows
         j = (r * k * n_fft // (p * radix)).ravel()
         w = np.where(j < m, got[j % m], -got[j % m])
-        np.testing.assert_allclose(got[row:row + len(stage)], w, rtol=0, atol=1.2e-7)
+        np.testing.assert_allclose(got[row:row + len(stage)], w, rtol=0, atol=1e-15)
         row += len(stage)
     assert row == n_fft - 1 and not table[row:].any()
 
 
 def _stockham(z: np.ndarray, n_fft: int) -> np.ndarray:
-    """The kernel's FFT of z [..., M] (complex64), stage by stage as
+    """The kernel's FFT of z [..., M] (complex128), stage by stage as
     csrc/stft_mel.cu:fft_stage runs it: butterfly i reads points i + r*per,
     multiplies point r by table row M + offset + (r-1)*p + (i mod p), and
     writes to (i - i mod p)*R + i mod p + r*p."""
     m = z.shape[-1]
     tw = fft_twiddles(n_fft)
-    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
-    src, row = z.astype(np.complex64), m
+    tw = tw[:, 0] + 1j * tw[:, 1]
+    src, row = z.astype(np.complex128), m
     for radix, p in fft_stages(m):
         per = m // radix
         i = np.arange(per)
@@ -126,34 +126,36 @@ def _stockham(z: np.ndarray, n_fft: int) -> np.ndarray:
 def test_stockham_schedule_is_the_fft(n_fft):
     rng = np.random.default_rng(n_fft)
     z = (rng.standard_normal((3, n_fft // 2)) + 1j * rng.standard_normal((3, n_fft // 2)))
-    got = _stockham(z.astype(np.complex64), n_fft)
+    got = _stockham(z, n_fft)
     want = np.fft.fft(z, axis=-1)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
 def _model(y, n_fft, hop, win, n_mels, sr, fmin, fmax, fft, clip=1e-5):
-    """The kernel's algorithm in float32 NumPy: reflect pad, frames, pack
-    with the fp32 window, an n_fft/2-point complex FFT (`fft`), the split
-    step with the table's W^k, |X| with the 1e-6 floor, band sums."""
+    """The kernel's algorithm in NumPy, float64 between the fp32 samples
+    and the fp32 outputs: reflect pad, frames, pack with the float64
+    window, an n_fft/2-point complex FFT (`fft`), the split step with the
+    table's W^k, |X| with the 1e-6 floor, band sums with the fp32 weights
+    over the float64 magnitudes, the log."""
     pad = (n_fft - hop) // 2
     yp = np.pad(y, ((0, 0), (pad, pad)), mode="reflect")
     nf = 1 + (yp.shape[1] - n_fft) // hop
     frames = np.stack([yp[:, f * hop:f * hop + n_fft] for f in range(nf)], axis=1)
-    x = frames * _padded_window(n_fft, win)
+    x = frames.astype(np.float64) * _padded_window(n_fft, win, np.float64)
     m = n_fft // 2
-    zf = fft((x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64), n_fft)
+    zf = fft(x[..., 0::2] + 1j * x[..., 1::2], n_fft)
     tw = fft_twiddles(n_fft)
-    w = np.concatenate([(tw[:m, 0] + 1j * tw[:m, 1]), [-1.0]]).astype(np.complex64)
+    w = np.concatenate([(tw[:m, 0] + 1j * tw[:m, 1]), [-1.0]])
     k = np.arange(m + 1)
     zk, zc = zf[..., k % m], np.conj(zf[..., (m - k) % m])
     xk = 0.5 * (zk + zc) - 0.5j * w * (zk - zc)
-    spec = np.sqrt(xk.real ** 2 + xk.imag ** 2 + np.float32(1e-6)).astype(np.float32)
+    spec = np.sqrt(xk.real ** 2 + xk.imag ** 2 + 1e-6)
     table, weights = mel_bands(sr, n_fft, n_mels, fmin, fmax)
-    mel = np.zeros(spec.shape[:2] + (n_mels,), np.float32)
+    mel = np.zeros(spec.shape[:2] + (n_mels,))
     for mm, (start, length, offset) in enumerate(table.T):
         for j in range(length):  # ascending bins, as the kernel's thread sums them
-            mel[..., mm] += spec[..., start + j] * weights[offset + j]
-    return spec, np.log(np.maximum(mel, np.float32(clip)))
+            mel[..., mm] += spec[..., start + j] * np.float64(weights[offset + j])
+    return spec.astype(np.float32), np.log(np.maximum(mel, clip)).astype(np.float32)
 
 
 @pytest.mark.parametrize("fft", ["numpy", "stockham"])
@@ -164,8 +166,7 @@ def test_kernel_model_matches_plain_and_jax(name, fft):
     n = np.arange(t) / sr
     tone = sum(0.2 / (h + 1) * np.sin(2 * np.pi * 190.0 * (h + 1) * n) for h in range(8))
     y = (tone[None, :] + 0.02 * rng.standard_normal((b, t))).astype(np.float32)
-    fn = (lambda z, _: np.fft.fft(z, axis=-1).astype(np.complex64)) if fft == "numpy" \
-        else _stockham
+    fn = (lambda z, _: np.fft.fft(z, axis=-1)) if fft == "numpy" else _stockham
     spec, mel = _model(y, n_fft, hop, win, n_mels, sr, fmin, fmax, fn)
     ref_spec, ref_mel = (r.numpy() for r in spectrogram_mel_plain(
         torch.from_numpy(y), n_fft, n_mels, sr, hop, win, fmin, fmax))
@@ -175,6 +176,27 @@ def test_kernel_model_matches_plain_and_jax(name, fft):
         assert spec.shape == want_spec.shape and mel.shape == want_mel.shape
         np.testing.assert_allclose(spec, want_spec, rtol=0, atol=1e-4 * np.abs(want_spec).max())
         np.testing.assert_allclose(mel, want_mel, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(MODEL_SETTINGS))
+def test_kernel_model_is_float64_close_to_plain(name):
+    """A voiced tone that stops half way, so that many bands lie far below
+    their frame's peak: the kernel's float64 arithmetic (the model, with
+    its Stockham FFT) lands within 1e-6 of the plain version's float64
+    direct DFT in both outputs, where fp32 butterflies err about 1e-5 and
+    more in such bands."""
+    b, t, n_fft, hop, win, n_mels, sr, fmin, fmax = MODEL_SETTINGS[name]
+    rng = np.random.default_rng(t + 1)
+    n = np.arange(t // 2) / sr
+    phase = 2 * np.pi * np.cumsum(rng.uniform(100, 300) * (1 + 0.1 * np.sin(2 * np.pi * n))) / sr
+    y = np.zeros((b, t), np.float32)
+    y[:, :t // 2] = sum(0.25 / (h + 1) * np.sin((h + 1) * phase) for h in range(6)) \
+        + 0.01 * rng.standard_normal((b, t // 2))
+    spec, mel = _model(y, n_fft, hop, win, n_mels, sr, fmin, fmax, _stockham)
+    ref_spec, ref_mel = (r.numpy() for r in spectrogram_mel_plain(
+        torch.from_numpy(y), n_fft, n_mels, sr, hop, win, fmin, fmax))
+    np.testing.assert_allclose(spec, ref_spec, rtol=0, atol=1e-6 * np.abs(ref_spec).max())
+    np.testing.assert_allclose(mel, ref_mel, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("n_fft,win,hop,n_mels,match", [

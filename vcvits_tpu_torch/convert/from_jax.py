@@ -3,13 +3,17 @@
 `params_from_jax(g_params, cfg)` takes the JAX package's generator
 parameters with every leaf a numpy array (for example
 `jax.tree.map(np.asarray, params)`) and returns a state dict for the port's
-module of the same subtree: `SynthesizerSVC` for the whole generator, or
-any submodule for a subtree. `disc_params_from_jax(d_params)` does the same
+module of the same subtree: `SynthesizerSVC` or `SynthesizerTTS` for a
+whole generator, or any submodule for a subtree (the TTS tree's names,
+`enc_p.emb`, `duration_predictor.flow_i` / `post_flow_i` / `convs.sep_i`,
+`pitch_predictor.layer_i.norm.scale`, ..., are the port's module names,
+flax's nn.LayerNorm `scale` / `bias` included). `disc_params_from_jax(d_params)` does the same
 for the discriminators' {"mpd": ..., "msd": ...} tree, for the port's
 `Discriminators` (models/discriminators.py). `train_state_from_jax(state,
 cfg)` turns a whole JAX `GANTrainState` (numpy leaves) into the port's
 checkpoint content (`TrainStep.state_dict()`), Adam moments included, so a
-run started in JAX resumes in the port; a state with gradient accumulation
+run started in JAX resumes in the port (`tts_train_state_from_jax` does the
+same for a TTS run's state); a state with gradient accumulation
 (`optax.MultiSteps`) carries its accumulator over as well. It imports no JAX and no optax.
 The rules, by leaf name:
 
@@ -196,3 +200,15 @@ def train_state_from_jax(state: Any, cfg: Optional[Config] = None) -> Dict[str, 
             "g_opt": _moments(get("g_opt_state"), _convert_tree),
             "d_opt": _moments(get("d_opt_state"), _convert_tree),
             "accum": _accumulator(step, get("g_opt_state"), get("d_opt_state"))}
+
+
+def tts_train_state_from_jax(state: Any, cfg: Optional[Config] = None) -> Dict[str, Any]:
+    """`train_state_from_jax` of a TTS run's GANTrainState (a SynthesizerTTS
+    generator with `(g_params, d_params)` and their optimizer states, as
+    vcvits_tpu/train/tts_trainer.py checkpoints it) -> the content of
+    `TTSTrainStep.state_dict()`. Raises when the generator is not a TTS
+    one."""
+    out = train_state_from_jax(state, cfg)
+    if "enc_p.emb.weight" not in out["gen"] or "duration_predictor.pre.weight" not in out["gen"]:
+        raise ValueError("not a SynthesizerTTS generator: no enc_p.emb or duration_predictor")
+    return out

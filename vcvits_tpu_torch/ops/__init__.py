@@ -6,6 +6,8 @@
 * `fused_gate` (K5): the WaveNet gate, forward and backward, csrc/fused_gate.cu.
 * `int8_conv` (Q1, Q2): the W8A8 int8 decoder conv and its rows' maxima,
   csrc/int8_conv.cu (no Pallas counterpart: JAX runs an XLA int8 conv).
+* `monotonic_align` (M1): the TTS path's monotonic alignment search,
+  csrc/monotonic_align.cu (no Pallas counterpart: JAX runs two lax.scans).
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
 CUDA tensor; `_build.LAUNCHES` counts the kernel launches.

@@ -43,7 +43,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("mrf", "flow_coupling", "stft_mel", "fused_gate", "int8_conv")
+KERNEL_SOURCES = ("mrf", "flow_coupling", "stft_mel", "fused_gate", "int8_conv",
+                  "monotonic_align")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

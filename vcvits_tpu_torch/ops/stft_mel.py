@@ -3,7 +3,8 @@
 K3 replaces vcvits_tpu/ops/stft_pallas.py:spectrogram_mel_fused, K4
 replaces mel_spectrogram_fused in the same file. For y [B, T]: reflect-pad
 (n_fft-hop)/2, frame at hop stride, Hann-windowed real DFT,
-|S| = sqrt(re^2 + im^2 + 1e-6) and log(clamp(|S| @ fbank.T, clip)), fp32.
+|S| = sqrt(re^2 + im^2 + 1e-6) and log(clamp(|S| @ fbank.T, clip)), fp32
+in and out.
 Three instances of one kernel, csrc/stft_mel.cu:
 
 * `spectrogram_mel(y, ...)` -> (spec [B, NF, n_fft//2+1], log-mel [B, NF, n_mels]),
@@ -20,7 +21,8 @@ put the log-mel 1e-4 off where a bin's energy is far below its frame's,
 the limit the kernel is held to against this version); a CUDA tensor
 launches csrc/stft_mel.cu once or raises. The kernel computes the
 same function through a real FFT (an n_fft/2-point complex Stockham FFT
-and the split step) and sums each mel filter over its band of bins only.
+and the split step) and sums each mel filter over its band of bins only,
+in float64 between its fp32 input and outputs for the same reason.
 Its tables are host-side and pure, so the CPU tests hold them:
 `fft_stages` (the FFT's schedule), `fft_twiddles`, `mel_bands` and
 `check_kernel_sizes` (the sizes the kernel takes). `_build.LAUNCHES`
@@ -155,8 +157,7 @@ def fft_stages(m: int) -> List[Tuple[int, int]]:
 
 @functools.lru_cache(maxsize=8)
 def fft_twiddles(n_fft: int) -> np.ndarray:
-    """The kernel's twiddle table, [n_fft, 2] float32 (re, im), built in
-    float64. Rows 0 .. n_fft/2 - 1 hold W^k = exp(-2 pi i k / n_fft), read
+    """The kernel's twiddle table, [n_fft, 2] float64 (re, im). Rows 0 .. n_fft/2 - 1 hold W^k = exp(-2 pi i k / n_fft), read
     by the split step at bin k. Then, for each stage (R, p) of
     `fft_stages(n_fft // 2)` in order, exp(-2 pi i r k / (p R)) =
     W^(r k n_fft / (p R)) for r = 1 .. R-1 (outer) and k = 0 .. p-1
@@ -170,7 +171,7 @@ def fft_twiddles(n_fft: int) -> np.ndarray:
     table = np.zeros(n_fft, np.complex128)
     flat = np.concatenate(parts)
     table[:len(flat)] = flat
-    return np.stack([table.real, table.imag], axis=-1).astype(np.float32)
+    return np.stack([table.real, table.imag], axis=-1)
 
 
 def bands_from_fbank(fbank: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -203,7 +204,8 @@ def mel_bands(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 
 
 def _window(n_fft: int, win_length: int) -> np.ndarray:
-    return _padded_window(n_fft, win_length)
+    """The kernel's window, float64."""
+    return _padded_window(n_fft, win_length, np.float64)
 
 
 def _band_table(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: Optional[float]):
@@ -230,7 +232,7 @@ def _lib():
     lib = _build.load("stft_mel")
     if not getattr(lib, "_vc_typed", False):
         lib.stft_mel.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                                 + [ctypes.c_float, ctypes.c_void_p])
+                                 + [ctypes.c_double, ctypes.c_void_p])
         lib.stft_mel.restype = ctypes.c_int
         lib._vc_typed = True
     return lib

@@ -80,6 +80,15 @@ class StepDraws:
     ids_str2: Optional[torch.Tensor] = None
 
 
+def check_step_config(cfg: Config, dtype: torch.dtype) -> None:
+    """Refuse what the train steps do not port: a remat policy, a compute
+    dtype other than float32 or bfloat16."""
+    if cfg.train.remat_policy != "none":
+        raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+
+
 def _grad_norm(params) -> torch.Tensor:
     """optax.global_norm of the gradients (a missing gradient counts 0),
     summed in float64: a float32 sum over the discriminators' 50M squares
@@ -113,40 +122,30 @@ class _Sections:
             self.out[name] = self.out.get(name, 0.0) + a.elapsed_time(b)
 
 
-class TrainStep:
-    """Generator, discriminators, their optimizers and the step function.
+class GANStep:
+    """What a GAN train step holds beside its generator and its step
+    function: the discriminators, both AdamWs and gradient accumulators,
+    the schedule, the step counts, the generators of its draws, and the
+    checkpoint layout (`state_dict` / `load_state_dict`). `TrainStep` (the
+    conversion model) and train/tts_step.py's `TTSTrainStep` build on it.
 
-    Builds on `device` ("cuda" by default; raises when no GPU is present
-    unless device="cpu"). Weights come from the seeded initialisers, or
-    from `g_state` / `d_state` (for example params_from_jax /
-    disc_params_from_jax of the JAX package's trees). The learning rate
-    decays once per epoch of `steps_per_epoch` steps; the config's
-    `steps_per_epoch` overrides it, and 1000 is used where neither is set
-    (`train/state.resolve_steps_per_epoch`). `dtype` is the compute dtype
-    (float32 or bfloat16); `cfg.trainer.accumulate_grad_batches` mini-steps
-    make an update.
+    The learning rate decays once per epoch of `steps_per_epoch` steps; the
+    config's `steps_per_epoch` overrides it, and 1000 is used where neither
+    is set (`train/state.resolve_steps_per_epoch`). `dtype` is the compute
+    dtype (float32 or bfloat16); `cfg.trainer.accumulate_grad_batches`
+    mini-steps make an update. `step` counts calls (mini-steps, JAX's
+    `state.step`), `updates` the AdamW steps taken, and `mini_step` the
+    calls since the last update."""
 
-    `step` counts calls (mini-steps, JAX's `state.step`), `updates` the
-    AdamW steps taken, and `mini_step` the calls since the last update."""
-
-    def __init__(self, cfg: Config, device="cuda",
-                 hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
-                 g_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 d_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32):
-        device = resolve_device(device)
-        if cfg.train.remat_policy != "none":
-            raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    def __init__(self, cfg: Config, device: torch.device, dtype: torch.dtype,
+                 gen: torch.nn.Module, g_params, d_state: Optional[Mapping[str, torch.Tensor]],
+                 seed: int, steps_per_epoch: Optional[int]):
+        """`gen` (built, on `device`) with its trainable `g_params`; the
+        discriminators from `d_state`, or seeded with seed + 1."""
         self.cfg = cfg
         self.device = device
         self.dtype = dtype
-        self.gen = SynthesizerSVC.from_config(cfg, dtype=dtype, device=device,
-                                              seed=seed if g_state is None else None,
-                                              hubert_cfg=hubert_cfg)
-        if g_state is not None:
-            self.gen.load_state_dict(g_state)
+        self.gen = gen
         self.disc = Discriminators.from_config(cfg, dtype=dtype)
         if d_state is not None:
             self.disc.load_state_dict(d_state)
@@ -155,9 +154,7 @@ class TrainStep:
         self.disc.to(device)
         self.gen.train()
         self.disc.train()
-        for p in self.gen.enc_p.hubert.parameters():
-            p.requires_grad_(False)
-        self.g_params = trainable_parameters(self.gen)
+        self.g_params = list(g_params)
         self.d_params = list(self.disc.parameters())
         self.g_opt = make_optimizer(self.g_params, cfg)
         self.d_opt = make_optimizer(self.d_params, cfg)
@@ -221,6 +218,56 @@ class TrainStep:
         return {name: dict(opt.state[p]) for name, p in module.named_parameters()
                 if p in opt.state and opt.state[p]}
 
+    def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
+        """The target's segment at `ids`, [B, segment, 1] in the compute dtype."""
+        hop = self.cfg.data.hop_length
+        return slice_segments(batch["y_wav"][:, :, None], ids * hop,
+                              self.cfg.train.segment_size).to(self.dtype)
+
+    def _mel_of(self, wav: torch.Tensor) -> torch.Tensor:
+        d = self.cfg.data
+        return mel_spectrogram(wav, d.filter_length, d.n_mel_channels, d.target_sampling_rate,
+                               d.hop_length, d.win_length, d.mel_fmin, d.mel_fmax)
+
+    def _advance(self) -> None:
+        """Count the mini-step just taken (and the update, on the k-th)."""
+        if self.mini_step == self.g_acc.k - 1:
+            self.updates += 1
+        self.mini_step = (self.mini_step + 1) % self.g_acc.k
+        self.step += 1
+
+    def _set_lr(self, lr: float) -> None:
+        for opt in (self.g_opt, self.d_opt):
+            for group in opt.param_groups:
+                group["lr"] = lr
+
+
+class TrainStep(GANStep):
+    """The conversion model's generator (SynthesizerSVC, HuBERT frozen) on
+    a `GANStep`, and the step function.
+
+    Builds on `device` ("cuda" by default; raises when no GPU is present
+    unless device="cpu"). Weights come from the seeded initialisers, or
+    from `g_state` / `d_state` (for example params_from_jax /
+    disc_params_from_jax of the JAX package's trees)."""
+
+    def __init__(self, cfg: Config, device="cuda",
+                 hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
+                 g_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 d_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        device = resolve_device(device)
+        check_step_config(cfg, dtype)
+        gen = SynthesizerSVC.from_config(cfg, dtype=dtype, device=device,
+                                         seed=seed if g_state is None else None,
+                                         hubert_cfg=hubert_cfg)
+        if g_state is not None:
+            gen.load_state_dict(g_state)
+        for p in gen.enc_p.hubert.parameters():
+            p.requires_grad_(False)
+        super().__init__(cfg, device, dtype, gen, trainable_parameters(gen), d_state, seed,
+                         steps_per_epoch)
+
     def _features(self, batch: Batch):
         """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen;
         all but y_mel in the compute dtype."""
@@ -245,29 +292,6 @@ class TrainStep:
                         batch.get("sid"), deterministic=False, hubert_features=hub,
                         eps=eps, ids_str=ids_str, generator=self.generator,
                         dropout_generator=self.dropout_generator)
-
-    def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
-        """The target's segment at `ids`, [B, segment, 1] in the compute dtype."""
-        hop = self.cfg.data.hop_length
-        return slice_segments(batch["y_wav"][:, :, None], ids * hop,
-                              self.cfg.train.segment_size).to(self.dtype)
-
-    def _mel_of(self, wav: torch.Tensor) -> torch.Tensor:
-        d = self.cfg.data
-        return mel_spectrogram(wav, d.filter_length, d.n_mel_channels, d.target_sampling_rate,
-                               d.hop_length, d.win_length, d.mel_fmin, d.mel_fmax)
-
-    def _advance(self) -> None:
-        """Count the mini-step just taken (and the update, on the k-th)."""
-        if self.mini_step == self.g_acc.k - 1:
-            self.updates += 1
-        self.mini_step = (self.mini_step + 1) % self.g_acc.k
-        self.step += 1
-
-    def _set_lr(self, lr: float) -> None:
-        for opt in (self.g_opt, self.d_opt):
-            for group in opt.param_groups:
-                group["lr"] = lr
 
     def __call__(self, batch: Batch, draws: Optional[StepDraws] = None,
                  timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,191 @@
+"""The TTS GAN train step: generator update, then discriminator update.
+
+Counterpart of vcvits_tpu/train/tts_step.py:make_tts_train_step. One call
+of `TTSTrainStep` on a batch (text [B, T_x] ids, text_lengths [B], y_wav
+[B, T] at the target rate, y_wav_lengths [B], pitch [B, T // hop] frame
+F0 in Hz, 0 unvoiced, sid [B]):
+
+1. Frozen targets: the spectrogram and log-mel of the float32 y_wav from
+   ops/stft_mel.py (kernel K3, one launch); the energy target
+   log1p(||spec frame||_2); the pitch target.
+2. Generator: `SynthesizerTTS.forward` (WaveNet gates K5 with their
+   backward, MAS M1, the decoder's differentiable path with its res blocks
+   as modules, as JAX's training path runs them), both discriminators on
+   the target segment, and total = s_gen + s_fm + p_gen + p_fm + kl + mel
+   + dur + pitch + energy (C_P_FM, C_S_FM, C_DUR, C_PITCH, C_ENERGY below,
+   c_mel and c_kl from the config); the pitch loss over the shorter of the
+   target's and the prediction's frames. Backward, global grad norm, AdamW.
+3. Discriminator: the LS-GAN loss of both discriminators on the G step's
+   own output, detached (JAX's TTS step does not recompute the generator,
+   unlike the conversion step), backward, grad norm, AdamW.
+
+The casts are JAX's: y_spec goes to the compute dtype; the generated
+slice's mel is taken of `o` in float32 through the plain path (K3 takes no
+gradient); the discriminators see the target segment in the compute
+dtype; losses, parameters, gradients and AdamW are float32. The SDP runs
+in float32 in either dtype. With `accumulate_grad_batches` k > 1 each call
+is a mini-step, as in train/step.py.
+
+Draws: `TTSStepDraws` injects the posterior noise, the SDP's e_q and the
+segment starts (tests inject JAX's); the rest comes from the step's
+generators. `dropout=False` runs the forward without dropout (the JAX step
+always drops out; the tests and the card-vs-CPU check turn it off on both
+sides). The metrics dict has the JAX step's keys, as 0-dim float32 tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from vcvits_tpu_torch.config import Config
+from vcvits_tpu_torch.models.synthesizer_tts import SynthesizerTTS
+from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
+from vcvits_tpu_torch.train.losses import (
+    discriminator_loss, feature_loss, generator_loss, kl_loss)
+from vcvits_tpu_torch.train.state import accumulate_and_step
+from vcvits_tpu_torch.train.step import GANStep, _grad_norm, _Sections, check_step_config
+from vcvits_tpu_torch.utils.device import resolve_device
+from vcvits_tpu_torch.utils.masking import slice_segments
+
+Batch = Mapping[str, torch.Tensor]
+
+# the loss weights beyond c_mel / c_kl (vcvits_tpu/train/tts_step.py)
+C_P_FM = 1.0
+C_S_FM = 1.0
+C_DUR = 1.0
+C_PITCH = 0.1
+C_ENERGY = 0.1
+
+
+@dataclass
+class TTSStepDraws:
+    """Injected draws of one step; None draws from the step's generator.
+    eps: posterior noise [B, T_spec, inter]; e_q: the SDP's noise [B, T_x,
+    2]; ids_str: segment starts [B] in spectrogram frames."""
+
+    eps: Optional[torch.Tensor] = None
+    e_q: Optional[torch.Tensor] = None
+    ids_str: Optional[torch.Tensor] = None
+
+
+class TTSTrainStep(GANStep):
+    """SynthesizerTTS, the discriminators, their optimizers and the step.
+
+    Builds on `device` ("cuda" by default; raises when no GPU is present
+    unless device="cpu"), with seeded weights or `g_state` / `d_state`
+    (for example params_from_jax / disc_params_from_jax of JAX's trees).
+    The discriminators, optimizers, schedule, step counts, accumulator and
+    checkpoint layout are train/step.py's `GANStep`."""
+
+    def __init__(self, cfg: Config, device="cuda", seed: int = 0,
+                 g_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 d_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 n_vocab: Optional[int] = None, dropout: bool = True):
+        device = resolve_device(device)
+        check_step_config(cfg, dtype)
+        gen = SynthesizerTTS.from_config(cfg, dtype=dtype, device=device,
+                                         seed=seed if g_state is None else None,
+                                         n_vocab=n_vocab)
+        if g_state is not None:
+            gen.load_state_dict(g_state)
+        self.dropout = dropout
+        super().__init__(cfg, device, dtype, gen, gen.parameters(), d_state, seed,
+                         steps_per_epoch)
+
+    def _targets(self, batch: Batch):
+        """(y_spec in the compute dtype, y_mel, energy target, pitch target),
+        frozen: K3 on the float32 wave."""
+        d = self.cfg.data
+        with torch.no_grad():
+            y_spec, y_mel = spectrogram_mel(batch["y_wav"], d.filter_length, d.n_mel_channels,
+                                            d.target_sampling_rate, d.hop_length, d.win_length,
+                                            d.mel_fmin, d.mel_fmax)
+            energy = torch.log1p(torch.linalg.vector_norm(y_spec, dim=-1))[..., None]
+        pitch = batch["pitch"][..., None].float()
+        return y_spec.to(self.dtype), y_mel, energy, pitch
+
+    def __call__(self, batch: Batch, draws: Optional[TTSStepDraws] = None,
+                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+        """One step on a batch of padded tensors on the step's device. With
+        `timings` (a dict) on the card, each section's device ms is added."""
+        draws = draws or TTSStepDraws()
+        sections = _Sections(timings, self.device)
+        self._set_lr(self.schedule(self.updates))
+        targets = self._targets(batch)
+        sections.mark("targets (K3)")
+        g_metrics, o, ids = self._generator_step(batch, targets, draws, sections)
+        d_metrics = self._discriminator_step(batch, o, ids, sections)
+        sections.done()
+        metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
+                   **g_metrics, **d_metrics}
+        self._advance()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _generator_step(self, batch: Batch, targets, draws: TTSStepDraws,
+                        sections: _Sections):
+        cfg, t = self.cfg, self.cfg.train
+        hop = cfg.data.hop_length
+        y_spec, y_mel, energy_tgt, pitch_tgt = targets
+        self.disc.requires_grad_(False)
+        (o, l_length, pitch_pred, energy_pred, _, ids, _, y_mask,
+         (_, z_p, m_p, logs_p, _, logs_q)) = self.gen(
+            batch["text"], batch["text_lengths"], y_spec, batch["y_wav_lengths"] // hop,
+            batch.get("sid"), deterministic=not self.dropout, eps=draws.eps, e_q=draws.e_q,
+            ids_str=draws.ids_str, generator=self.generator,
+            dropout_generator=self.dropout_generator)
+        sections.mark("G forward (text encoder, posterior, flow, MAS, SDP, decoder)")
+        y_seg = self._target_segment(batch, ids)
+        (_, p_lg, p_fr, p_fg), (_, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
+        loss_p_fm = feature_loss(p_fr, p_fg) * C_P_FM
+        loss_s_fm = feature_loss(s_fr, s_fg) * C_S_FM
+        loss_p_gen, _ = generator_loss(p_lg)
+        loss_s_gen, _ = generator_loss(s_lg)
+        o_mel = self._mel_of(o[:, :, 0].float())
+        y_mel_slice = slice_segments(y_mel, ids, t.segment_size // hop)
+        loss_mel = torch.mean(torch.abs(o_mel - y_mel_slice)) * t.c_mel
+        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl
+        loss_dur = torch.sum(l_length.float()) * C_DUR
+        n = min(pitch_tgt.shape[1], pitch_pred.shape[1])
+        ym32 = y_mask.float()
+        loss_pitch = torch.mean(((pitch_pred[:, :n] - pitch_tgt[:, :n]) ** 2)
+                                * ym32[:, :n]) * C_PITCH
+        loss_energy = torch.mean(((energy_pred - energy_tgt.to(energy_pred.dtype)) ** 2)
+                                 * ym32) * C_ENERGY
+        loss_g = ((loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_kl + loss_mel
+                  + loss_dur + loss_pitch + loss_energy)
+        sections.mark("G losses (MPD + MSD forward, mel, KL, duration, pitch, energy)")
+        self.g_opt.zero_grad(set_to_none=True)
+        loss_g.backward()
+        sections.mark("G backward")
+        self.disc.requires_grad_(True)
+        grad_norm_g = _grad_norm(self.g_params)
+        accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
+        sections.mark("G grad norm + AdamW")
+        metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
+                   "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
+                   "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
+                   "loss/g/mel": loss_mel, "loss/g/kl": loss_kl, "loss/g/dur": loss_dur,
+                   "loss/g/pitch": loss_pitch, "loss/g/energy": loss_energy}
+        return metrics, o, ids
+
+    def _discriminator_step(self, batch: Batch, o: torch.Tensor, ids: torch.Tensor,
+                            sections: _Sections) -> Dict[str, torch.Tensor]:
+        """The LS-GAN D update on the G step's output, detached."""
+        y_seg = self._target_segment(batch, ids)
+        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg, o.detach())
+        loss_p, _, _ = discriminator_loss(p_lr, p_lg)
+        loss_s, _, _ = discriminator_loss(s_lr, s_lg)
+        loss_d = loss_p + loss_s
+        sections.mark("D forward + loss")
+        self.d_opt.zero_grad(set_to_none=True)
+        loss_d.backward()
+        sections.mark("D backward")
+        grad_norm_d = _grad_norm(self.d_params)
+        accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, self.cfg.train.grad_clip)
+        sections.mark("D grad norm + AdamW")
+        return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, "loss/d/p": loss_p,
+                "loss/d/s": loss_s}

@@ -1,5 +1,5 @@
-"""TensorBoard logging of scalars, mel images and audio (the port's copy of
-vcvits_tpu/utils/logging.py).
+"""TensorBoard logging of scalars, mel and alignment images and audio (the
+port's copy of vcvits_tpu/utils/logging.py).
 
 `TensorBoardLogger` writes through torch.utils.tensorboard where the
 `tensorboard` package is installed. Where it is not, it logs the scalars
@@ -29,6 +29,21 @@ def mel_to_image(mel: np.ndarray) -> np.ndarray:
         img = (np.stack([norm[::-1]] * 3, -1) * 255).astype(np.uint8)
     else:
         img = (cm.viridis(norm[::-1])[..., :3] * 255).astype(np.uint8)
+    return img.transpose(2, 0, 1)
+
+
+def alignment_to_image(attn: np.ndarray) -> np.ndarray:
+    """[T_text, T_spec] alignment -> [3, T_text, T_spec] uint8 image:
+    viridis where matplotlib is installed, else grey."""
+    a = np.asarray(attn, dtype=np.float32)
+    lo, hi = float(a.min()), float(a.max())
+    norm = (a - lo) / max(hi - lo, 1e-6)
+    try:
+        import matplotlib.cm as cm
+    except ImportError:
+        img = (np.stack([norm] * 3, -1) * 255).astype(np.uint8)
+    else:
+        img = (cm.viridis(norm)[..., :3] * 255).astype(np.uint8)
     return img.transpose(2, 0, 1)
 
 

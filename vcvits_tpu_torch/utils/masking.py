@@ -1,7 +1,7 @@
 """Masks, segment slicing and nearest-neighbour time interpolation, [B, T, C].
 
 Counterparts of vcvits_tpu/utils/masking.py (sequence_mask, slice_segments,
-rand_slice_segments) and
+rand_slice_segments, generate_path) and
 vcvits_tpu/models/synthesizer.py:nearest_interp. Masks are [B, T, 1] floats.
 """
 
@@ -55,3 +55,17 @@ def rand_slice_segments(x: torch.Tensor, x_lengths: Optional[torch.Tensor], segm
         ids_str = torch.floor(u * ids_str_max.to(u.dtype)).to(torch.int32)
     ids_str = ids_str.to(device=x.device, dtype=torch.int32)
     return slice_segments(x, ids_str, segment_size), ids_str
+
+
+def generate_path(duration: torch.Tensor, y_mask: torch.Tensor, x_mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """Durations -> hard monotonic alignment. duration [B, T_x] integer
+    counts, y_mask [B, T_y, 1], x_mask [B, T_x, 1] -> attn [B, T_y, T_x]
+    with attn[b, y, x] = 1 where cum[x - 1] <= y < cum[x], masked to the
+    valid region, in y_mask's dtype."""
+    cum = torch.cumsum(duration.to(torch.int64), dim=1)  # [B, T_x]
+    ys = torch.arange(y_mask.shape[1], device=duration.device)[None, :, None]
+    upper = ys < cum[:, None, :]
+    lower = ys >= torch.nn.functional.pad(cum[:, :-1], (1, 0))[:, None, :]
+    attn = (upper & lower).to(y_mask.dtype)
+    return attn * y_mask * x_mask[:, None, :, 0]
