@@ -179,8 +179,9 @@
    ("fp16_run": true: bf16 compute, TF32 off for what stays float32), only
    the step counts, the intervals and the corpus changed: 40 training and
    8 validation synthetic 2-4 s WAVs at 48 kHz (a known f0 contour, 4
-   speakers), `preprocess` in 8 processes with the C++ host DSP and again
-   with its NumPy version (each timed, the caches equal), then
+   speakers), `preprocess` in 8 processes with the C++ host DSP, and the
+   validation clips again with its NumPy version (each timed, the caches
+   equal), then
    Trainer.fit(max_steps=6) with log_interval 1 and validation and
    checkpoints every 3 steps. The default device_data_cache "auto" must
    pick DeviceBatcher; launches around the fit are per step K3 1, K5 64
@@ -230,12 +231,55 @@
    bf16), K2's modes (1e-4 fp32, 2e-2 bf16), K3 on the 16 x 8 s batch
    (1e-4), K5 forward and backward at [16, 750, 2H] (1e-6, 1e-2 bf16), K4
    (1e-4), M1 bit-equal; the worst max |err| of each goes into the
-   kernels line as `max_abs_err_tts_inputs`.
+   kernels line as `max_abs_err_tts_inputs` (on the base_json paths below
+   as `max_abs_err_base_json_inputs`). Path C ends with (i) of the multi-GPU
+   checks: `torchrun --nproc-per-node <cards> -m vcvits_tpu_torch.cli.train
+   --distributed` (NCCL, one rank a card; `--model-parallel 2` when the
+   card count is even and above 1) on the shipped config with the data
+   paths changed and batch 4, 2 steps, then again to 3, restoring step 2.
+7c. base_json: configs/base.json at full width (HuBERT XTRALARGE 48 x
+   1280, hidden and inter 256, 256 mels), seeded weights drawn on the card
+   (`init_on_device`) with `perturbed_state`'s changes, the init seconds;
+   convert_array and voice_conversion_array of 10 s in fp32 and bf16 with
+   their ms and a breakdown (HuBERT + prior, flow K2, upsamplers, K1,
+   conv_post); a daemon batch of 4 x 10 s (fp32, noise 0); the validation
+   log-mel of a converted clip (K4 at 256 mels); 2 train steps at the
+   config's batch 4 in bf16 and fp32 (ms/step, peak memory, _Sections,
+   a profile with the idle share); every kernel held to its plain version
+   on these paths' own inputs (`kernel_inputs`); a 1 s input on the card
+   and on the CPU plain path at full depth (fp32, atol 1e-3). Then the two
+   open measurements: K1's fp32 max |err| / RMS per decoder stage at 930
+   and 4,480 frames (random z, each stage on the plain path's input), and
+   a device profile of HuBERT + prior in fp32 and bf16 for one 10 s
+   request at both HuBERT sizes (48k_base's 12 x 768, base.json's 48 x
+   1280).
+7d. multi_gpu, two ranks over gloo sharing the card when there is one
+   card (NCCL refuses two ranks on one card), over NCCL on two cards
+   otherwise; the ranks are spawned after the kernels are built, and
+   load them, and run under deterministic algorithms (`_rank_device`):
+   (ii) DP = 2, one 48k_base fp32 step at B = 16 against the one-process
+   step with the same seed and batch, learning rate 0 so that both D
+   halves see one generator; the one-process step run twice must be equal
+   bit for bit, and against it the metrics hold rtol 1e-5 and each
+   parameter group's (gen.enc_p, gen.flow, ..., disc.msd) gradients
+   ||err|| / ||grad|| its limit (`grad_limit`: 3e-2 enc_p, 5e-3 dec, 5e-4
+   each discriminator, 1e-4 the rest; max |err| over the group's RMS and
+   largest printed beside it), then a timed step;
+   (iii) TP = 2 on base.json: a 10 s convert (noise 0) against world 1
+   (max |err| <= 1e-4 x RMS), one fp32 step at B = 4 against world 1 (the
+   checks of (ii)), K1 and K2 held to their
+   plain versions on the TP
+   inference's own inputs (K2's weights gathered from the shards), each
+   rank's peak memory; (iv) a ServingDaemon with 2 replicas against 1, 4 x
+   10 s in one batch (atol 1e-5), requests/s; (v) dryrun_multigpu(2).
+   Each phase prints its seconds.
 8. Prints the launches of each path (serve: the first round of both
    dtypes; stream: the windowed runs) (counters set to 0 just before each
-   path and read just after), a `kernels` JSON line (with M1, and each
-   kernel's launches on the TTS paths as `launches_tts`), then, last, the
-   result line {"ok": true, "device": {...}}.
+   path and read just after; the multi-GPU ranks' counts are rank 0's,
+   read around its own step or call), a `kernels` JSON line (with M1, and
+   each kernel's launches on the TTS paths as `launches_tts` and on the
+   new paths as `launches_base_json` and `launches_multi_gpu`), then,
+   last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; without a GPU it exits
 non-zero before printing any result.
@@ -252,6 +296,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1836,8 +1881,9 @@ def train_batch(cfg, b, lo_s, hi_s, rng, dev):
             "sid": as_t(rng.integers(0, d.n_speakers, b), torch.int64)}
 
 
-def train_steps(cfg, g_state, batch, dev, _build, card: str, dtype) -> tuple:
-    """N_TRAIN_STEPS steps of TrainStep in `dtype` on `batch`, counted ->
+def train_steps(cfg, g_state, batch, dev, _build, card: str, dtype,
+                n_steps: int = N_TRAIN_STEPS, path: str = "path B") -> tuple:
+    """`n_steps` steps of TrainStep in `dtype` on `batch`, counted ->
     (launch counts, ms/step over steps 2-N, peak GiB)."""
     from vcvits_tpu_torch.train.state import is_frozen
     from vcvits_tpu_torch.train.step import TrainStep
@@ -1852,45 +1898,45 @@ def train_steps(cfg, g_state, batch, dev, _build, card: str, dtype) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _build.LAUNCHES.clear()
     walls, last = [], None
-    for i in range(N_TRAIN_STEPS):
+    for i in range(n_steps):
         t0 = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
-            raise AssertionError(f"path B {label} step {i + 1}: non-finite {bad}")
+            raise AssertionError(f"{path} {label} step {i + 1}: non-finite {bad}")
         if i == 0:
             frozen = [n for n in named if is_frozen(n)]
             moved = [n for n in frozen if not torch.equal(named[n], before[n])]
             still = [n for n in named if n not in frozen and torch.equal(named[n], before[n])]
             if moved or still or not frozen:
-                raise AssertionError(f"path B {label} step 1: HuBERT moved {moved[:5]}, "
+                raise AssertionError(f"{path} {label} step 1: HuBERT moved {moved[:5]}, "
                                      f"trainable unchanged {still[:5]} ({len(still)})")
-            print(f"path B {label} step 1: {len(named) - len(frozen)} trainable tensors all "
+            print(f"{path} {label} step 1: {len(named) - len(frozen)} trainable tensors all "
                   f"changed, {len(frozen)} HuBERT tensors unchanged")
             del before
         last = metrics
     counts = dict(_build.LAUNCHES)
     for k, n in per_step.items():
-        if counts.get(k, 0) != n * N_TRAIN_STEPS:
-            raise AssertionError(f"path B {label}: {k} launched {counts.get(k, 0)} times in "
-                                 f"{N_TRAIN_STEPS} steps, expected {n * N_TRAIN_STEPS}")
+        if counts.get(k, 0) != n * n_steps:
+            raise AssertionError(f"{path} {label}: {k} launched {counts.get(k, 0)} times in "
+                                 f"{n_steps} steps, expected {n * n_steps}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = np.mean(walls[1:]) * 1e3
-    print(f"path B {label}: {N_TRAIN_STEPS} steps at B={cfg.train.batch_size}, 2-4 s clips padded "
+    print(f"{path} {label}: {n_steps} steps at B={cfg.train.batch_size}, 2-4 s clips padded "
           f"to {batch['y_wav'].shape[1] / 48000:.2f} s, segment {cfg.train.segment_size}: "
-          f"{ms:.1f} ms/step over steps 2-{N_TRAIN_STEPS} (step 1 {walls[0] * 1e3:.1f} ms), "
+          f"{ms:.1f} ms/step over steps 2-{n_steps} (step 1 {walls[0] * 1e3:.1f} ms), "
           f"peak memory {peak:.2f} GiB on {card}; launches per step "
-          f"{ {k: counts.get(k, 0) / N_TRAIN_STEPS for k in per_step} }")
-    print(f"path B {label} step {N_TRAIN_STEPS} metrics: " + ", ".join(
+          f"{ {k: counts.get(k, 0) / n_steps for k in per_step} }")
+    print(f"{path} {label} step {n_steps} metrics: " + ", ".join(
         f"{k}={float(v):.5g}" for k, v in last.items() if not k.startswith("loss/d_")))
     parts = {}
     for _ in range(2):  # after the counted run: device ms per section of a step
         step(batch, timings=parts)
-    print(f"path B {label} breakdown (device ms per step, mean of 2 steps): " + ", ".join(
+    print(f"{path} {label} breakdown (device ms per step, mean of 2 steps): " + ", ".join(
         f"{k}={v / 2:.3f}" for k, v in parts.items()) + f"; sum={sum(parts.values()) / 2:.3f}")
-    device_profile(lambda: step(batch), f"path B {label} train step", card)
+    device_profile(lambda: step(batch), f"{path} {label} train step", card)
     del step
     torch.cuda.empty_cache()
     return {k: counts.get(k, 0) for k in per_step}, ms, peak
@@ -2089,15 +2135,18 @@ def path_c_phase(dev, _build, card: str):
         cfg = Config.from_dict(raw)
         dtype = torch.bfloat16 if cfg.train.fp16_run else torch.float32
         prep_s = {}
-        for plain in (False, True):  # the C++ host DSP, then its NumPy version
-            cache = os.path.join(tmp, "cache_numpy" if plain else "cache")
-            t0 = time.perf_counter()
-            for fl in (train_fl, val_fl):
-                preprocess(VoiceConversionDataset(fl, cfg.data, cache_dir=cache, plain_dsp=plain),
-                           num_workers=8, log_every=0)
-            prep_s[plain] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fl in (train_fl, val_fl):  # the C++ host DSP
+            preprocess(VoiceConversionDataset(fl, cfg.data), num_workers=8, log_every=0)
+            prep_s[fl] = time.perf_counter() - t0
+        # its NumPy version on the 8 validation clips only: the whole corpus
+        # costs about 30 s more for the same comparison
+        t0 = time.perf_counter()
+        preprocess(VoiceConversionDataset(val_fl, cfg.data, cache_dir=os.path.join(
+            tmp, "cache_numpy"), plain_dsp=True), num_workers=8, log_every=0)
+        prep_s["numpy"] = time.perf_counter() - t0
         differ = []
-        for fl in (train_fl, val_fl):
+        for fl in (val_fl,):
             cpp = VoiceConversionDataset(fl, cfg.data)
             ref = VoiceConversionDataset(fl, cfg.data, cache_dir=os.path.join(tmp, "cache_numpy"))
             for i in range(len(cpp)):
@@ -2106,9 +2155,11 @@ def path_c_phase(dev, _build, card: str):
                            if not np.array_equal(a[k], b[k])]
         if differ:
             raise AssertionError(f"path C: the C++ and NumPy host DSP caches differ: {differ[:5]}")
+        val_s = prep_s[val_fl] - prep_s[train_fl]
         print(f"path C: preprocess of 48 clips (resample, pYIN, 8 processes) on the host: "
-              f"{prep_s[False]:.2f} s with the C++ host DSP, {prep_s[True]:.2f} s with its NumPy "
-              f"version ({prep_s[True] / prep_s[False]:.2f}x); every cached array equal")
+              f"{prep_s[val_fl]:.2f} s with the C++ host DSP; the 8 validation clips "
+              f"{val_s:.2f} s with it, {prep_s['numpy']:.2f} s with its NumPy version "
+              f"({prep_s['numpy'] / val_s:.2f}x); every cached array equal")
 
         # request_stop() before fit: a checkpoint at the first boundary, step 0
         stop_dir = os.path.join(tmp, "stopped")
@@ -2227,6 +2278,7 @@ def path_c_phase(dev, _build, card: str):
         torch.cuda.empty_cache()
         accumulation_resume(cfg, dtype, os.path.join(tmp, "accum"), dev, card)
         cli_run(train_fl, val_fl, os.path.join(tmp, "cache"), os.path.join(tmp, "cli"), card)
+        torchrun_phase(train_fl, val_fl, os.path.join(tmp, "cache"), tmp, card)
     return counts
 
 
@@ -2849,7 +2901,9 @@ KERNEL_SITES = (("vcvits_tpu_torch.models.hifigan", "mrf", "mrf"),
                 ("vcvits_tpu_torch.models.wavenet", "fused_gate", "fused_gate"),
                 ("vcvits_tpu_torch.train.tts_step", "spectrogram_mel", "stft_mel"),
                 ("vcvits_tpu_torch.train.tts_trainer", "mel_spectrogram", "mel_spectrogram"),
-                ("vcvits_tpu_torch.models.synthesizer_tts", "maximum_path", "monotonic_align"))
+                ("vcvits_tpu_torch.models.synthesizer_tts", "maximum_path", "monotonic_align"),
+                ("vcvits_tpu_torch.train.step", "spectrogram_mel", "stft_mel"),
+                ("vcvits_tpu_torch.train.trainer", "mel_spectrogram", "mel_spectrogram"))
 
 
 def _moved(v, device):
@@ -3468,6 +3522,570 @@ def tts_loop_phase(dev, _build, card: str, held: dict):
     return {k: counts.get(k, 0) for k in per_fit}
 
 
+# ------------------------------------------------------------------ base.json
+
+BASE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "base.json")
+BASE_BATCH = 4  # configs/base.json's train.batch_size
+BASE_TRAIN_STEPS = 2
+K1_FRAMES = (930, 4480)  # a 10 s conversion's decoder frames, and the TTS budget's
+TP_TOL = 1e-4  # TP inference against world 1, max |err| / RMS, fp32
+MULTI_RTOL = 1e-5  # a multi-rank step's metrics against the one-process step's
+# ||grad err|| / ||grad|| per parameter group, a multi-rank step against the
+# one-process step, both under deterministic algorithms: about 10x the
+# largest faultless reading of (ii) and (iii) on the card, far below a
+# collective left out (tools/torch_tp_precision.py). The ReLUs of the
+# prior's FFNs and the decoder's leaky ReLUs turn the layout's
+# rounding-sized change of the forward into larger gradient moves.
+MULTI_GRAD_L2 = {"gen.enc_p": 3e-2, "gen.dec": 5e-3, "disc.mpd": 5e-4, "disc.msd": 5e-4}
+MULTI_GRAD_L2_REST = 1e-4  # gen.flow, gen.emb_g, gen.enc_q
+
+
+def grad_limit(group: str) -> float:
+    return MULTI_GRAD_L2.get(group, MULTI_GRAD_L2_REST)
+
+
+def off_groups(rec: dict) -> list:
+    """The parameter groups of a multi-rank step (`_compare_steps` against
+    one process) whose gradients are further off than their limit
+    (`grad_limit`) in relative L2 norm."""
+    return [g for g, r in rec["groups"].items() if r["l2"] > grad_limit(g)]
+
+
+def repeats_itself(rec: dict) -> bool:
+    """The one-process step run twice (`_compare_steps`) gave equal metrics
+    and gradients, bit for bit."""
+    return rec["metric_rel"] == 0.0 and all(r["top"] == 0.0 for r in rec["groups"].values())
+
+
+def groups_line(groups: dict) -> str:
+    """Per parameter group: relative L2 (its limit), max |err| / RMS, max
+    |err| / largest, and the tensor with the largest |err|."""
+    return "; ".join(f"{k} {r['l2']:.2e} ({grad_limit(k):g}) / {r['rms']:.2e} / {r['top']:.2e} "
+                     f"({r['where']})" for k, r in groups.items())
+
+
+REPLICA_ATOL = 1e-5  # the daemon's rows, 2 replicas against 1
+
+
+def base_model(cfg, dev):
+    """configs/base.json's seeded generator built on the card (init_weights
+    draws there: about 1 B parameters), perturbed as `perturbed_state` does
+    -> (model, seconds)."""
+    from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = SynthesizerSVC.from_config(cfg, device=dev, seed=0, init_on_device=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("flow.") and ".post." in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.05)
+            elif name.startswith("dec.") and name.endswith(".g"):
+                p.mul_(3.0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def k1_stage_errors(dec, dev) -> dict:
+    """K1 in fp32 against its plain version per decoder stage, at each of
+    K1_FRAMES latent frames (random z from a seed; each stage's input is
+    the plain path's): {frames: [max |err| / RMS per stage]}."""
+    from vcvits_tpu_torch.ops.mrf import mrf, mrf_plain
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.inference_mode():
+        stages = dec.mrf_weights()
+        for frames in K1_FRAMES:
+            x = dec.conv_pre(torch.randn(1, frames, dec.conv_pre.v.shape[1], generator=gen,
+                                         device=dev))
+            errs = []
+            for i, blocks in enumerate(stages):
+                x = getattr(dec, f"up_{i}")(x, act_slope=0.1).contiguous()
+                ref = mrf_plain(x, blocks, dec.kernel_sizes, dec.dilations)
+                errs.append(rel_err(mrf(x, blocks, dec.kernel_sizes, dec.dilations), ref)[1])
+                x = ref
+            out[frames] = errs
+    return out
+
+
+def prior_profiles(vcs, wav, pitch, label: str, card: str) -> None:
+    """An op-level device profile of HuBERT + prior (`enc_p`) of one 10 s
+    request, in each dtype of `vcs`, one after the other in this call."""
+    for dtype, vc in vcs.items():
+        dev = vc.device
+        x = torch.as_tensor(wav, device=dev)[None]
+        lens = torch.tensor([len(wav)], device=dev)
+        pit = torch.as_tensor(pitch, device=dev)[None]
+        with torch.no_grad():
+            vc.gen.enc_p(x, lens, pit)  # warm
+            device_profile(lambda: vc.gen.enc_p(x, lens, pit),
+                           f"HuBERT + prior {label} {str(dtype)[6:]}", card, top=8)
+
+
+def base_json_phase(dev, _build, card: str, held: dict):
+    """configs/base.json at full width on the card: seeded weights built on
+    the card, convert and voice_conversion of 10 s in fp32 and bf16 with a
+    breakdown, a daemon batch of 4 x 10 s, BASE_TRAIN_STEPS train steps at
+    the config's batch in bf16 and fp32, the validation log-mel (K4), every
+    kernel held to its plain version on these paths' own inputs, the card
+    against the CPU plain path on 1 s at full depth, and the two open
+    measurements (K1's fp32 error per stage at 930 and 4480 frames; HuBERT
+    + prior's op profile in fp32 and bf16 at both HuBERT sizes)."""
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.dsp.resample import resample
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.models.synthesizer import hubert_config_for
+    from vcvits_tpu_torch.train import trainer as trainer_mod
+    from vcvits_tpu_torch.utils.audio_io import read_wav
+
+    cfg = load_config(BASE_CONFIG)
+    hc = hubert_config_for(cfg.model.hubert_channels)
+    model, init_s = base_model(cfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"base_json: configs/base.json at full width, HuBERT {hc.num_layers} x "
+          f"{hc.hidden_size} ({hc.num_heads} heads, FFN {hc.intermediate_size}), hidden "
+          f"{cfg.model.hidden_channels}, inter {cfg.model.inter_channels}, "
+          f"{cfg.data.n_mel_channels} mels: {n_params / 1e9:.4f} B parameters seeded on the "
+          f"card in {init_s:.2f} s on {card}")
+    sd = model.state_dict()
+    vcs = {dt: VoiceConverter(cfg, sd, dtype=dt, device=dev)
+           for dt in (torch.float32, torch.bfloat16)}
+    d = cfg.data
+    counts = {}
+
+    def add(delta):
+        for k, v in delta.items():
+            counts[k] = counts.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp, kernel_inputs() as seen:
+        src = write_sources(tmp, n=1)[0]
+        wav, true_len, pitch = vcs[torch.float32].prepare_source(src)
+        wav48 = resample(*read_wav(src), d.target_sampling_rate)
+        _build.LAUNCHES.clear()
+        outs = {}
+        for dtype, vc in vcs.items():
+            label = str(dtype)[6:]
+            out = vc.convert_array(wav, pitch, 3, true_len)
+            vco = vc.voice_conversion_array(wav48, 3, 77)
+            torch.cuda.synchronize()
+            for what, o in (("convert", out), ("voice_conversion", vco)):
+                if not np.isfinite(o).all() or len(o) == 0:
+                    raise AssertionError(f"base_json {label} {what}: {len(o)} samples, finite "
+                                         f"{np.isfinite(o).all()}")
+            outs[dtype] = out
+            for what, fn in (("convert_array", lambda: vc.convert_array(wav, pitch, 3, true_len)),
+                             ("voice_conversion_array",
+                              lambda: vc.voice_conversion_array(wav48, 3, 77))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                print(f"base_json {label}: {what} of 10 s {ms:.1f} ms, rtf "
+                      f"{10000 / ms:.2f}x real time on {card}")
+            breakdown(vc, wav, pitch, f"base_json {label}")
+        # a daemon batch of 4 x 10 s, fp32
+        reqs = serve_sources(cfg, np.random.default_rng(12), (10.0,) * BASE_BATCH)
+        with recording_daemon(vcs[torch.float32], max_batch=BASE_BATCH,
+                              window_ms=1000.0) as daemon:
+            t0 = time.perf_counter()
+            futs = [daemon.submit(w, p, n, speaker_id=s, noise_scale=0.0)
+                    for w, p, n, s in reqs]
+            res = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            sizes = [len(b) for b in daemon.batches]
+        if sizes != [BASE_BATCH] or not all(np.isfinite(r).all() for r in res):
+            raise AssertionError(f"base_json daemon: batches {sizes}")
+        print(f"base_json daemon fp32: one batch of {BASE_BATCH} x 10 s in {wall * 1e3:.1f} ms "
+              f"({BASE_BATCH / wall:.2f} requests/s) on {card}")
+        # the validation log-mel of a converted clip (K4 at 256 mels)
+        y = torch.as_tensor(outs[torch.float32][None, : len(outs[torch.float32]) // d.hop_length
+                                                 * d.hop_length], device=dev)
+        mel = trainer_mod.mel_spectrogram(y, d.filter_length, d.n_mel_channels,
+                                          d.target_sampling_rate, d.hop_length, d.win_length,
+                                          d.mel_fmin, d.mel_fmax)
+        if mel.shape[-1] != d.n_mel_channels or not torch.isfinite(mel).all():
+            raise AssertionError(f"base_json validation mel: {tuple(mel.shape)}")
+        add(dict(_build.LAUNCHES))
+        batch = train_batch(cfg, BASE_BATCH, 2.0, 4.0, np.random.default_rng(13), dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            c, ms, peak = train_steps(cfg, sd, batch, dev, _build, card, dtype,
+                                      n_steps=BASE_TRAIN_STEPS, path="base_json")
+            add(c)
+        del batch
+        seen_calls = {k: len(v) for k, v in seen.items() if v}
+        check_kernel_inputs(seen, "base_json", ("mrf", "flow_coupling_reverse",
+                                                "flow_coupling_forward", "wn_segment",
+                                                "fused_gate", "stft_mel", "mel_spectrogram"),
+                            held)
+    print(f"base_json: kernels held on the path's inputs at {seen_calls} distinct shapes; "
+          f"launches {json.dumps(counts)}")
+    # the card against the CPU plain path, 1 s at full depth, fp32
+    rng = np.random.default_rng(14)
+    n = 16000
+    t = np.arange(n) / 16000
+    w1 = (0.3 * np.sin(2 * np.pi * 180 * t) + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    p1 = np.full(n // 320, 120, np.int64)
+    eps = rng.standard_normal((1, 94, cfg.model.inter_channels)).astype(np.float32)
+    gpu = vcs[torch.float32].convert_array(w1, p1, 7, noise_scale=0.8, eps=eps)
+    del vcs[torch.bfloat16]
+    t0 = time.perf_counter()
+    cpu_vc = VoiceConverter(cfg, {k: v.cpu() for k, v in sd.items()}, device="cpu")
+    cpu = cpu_vc.convert_array(w1, p1, 7, noise_scale=0.8, eps=eps)
+    cpu_s = time.perf_counter() - t0
+    del cpu_vc
+    diff = float(np.abs(gpu - cpu).max())
+    print(f"base_json reference (1 s at full depth, card kernels vs CPU plain path, fp32): "
+          f"samples={len(gpu)} max_abs_err={diff:.3e} (limit {SLICE_ATOL}) mean|y|="
+          f"{float(np.abs(cpu).mean()):.3e}; the CPU took {cpu_s:.1f} s")
+    if len(gpu) != len(cpu) or not diff <= SLICE_ATOL or not np.abs(cpu).mean() > 1e-2:
+        raise AssertionError(f"base_json: card and CPU differ by {diff:.3e}")
+    # K1's fp32 error against T, and HuBERT + prior's profile in each dtype
+    for frames, errs in k1_stage_errors(vcs[torch.float32].gen.dec, dev).items():
+        print(f"K1 fp32 max |err| / RMS per decoder stage at {frames} frames (base.json's "
+              f"perturbed decoder): " + ", ".join(f"stage {i} {e:.3e}" for i, e in enumerate(errs))
+              + f" (limit {MRF_TOL[torch.float32]})")
+    base_vcs = {dt: VoiceConverter(load_config(CONFIG), perturbed_state(load_config(CONFIG)),
+                                   dtype=dt, device=dev) for dt in (torch.float32, torch.bfloat16)}
+    prior_profiles(base_vcs, wav, pitch, "HuBERT base 12 x 768 (48k_base)", card)
+    del base_vcs
+    vcs[torch.bfloat16] = VoiceConverter(cfg, sd, dtype=torch.bfloat16, device=dev)
+    prior_profiles(vcs, wav, pitch, "HuBERT XTRALARGE 48 x 1280 (base.json)", card)
+    del vcs, sd, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------------------------ multi-GPU
+
+def frozen_lr(path: str):
+    """The config at `path` with learning rate 0: the step's gradients are
+    the same, and its D half sees the same generator on both sides of a
+    comparison (AdamW's first update moves a parameter by about lr x
+    sign(g), and a near-zero generator gradient whose sign differs between
+    two summation orders would move the D half's input by 2 lr)."""
+    from vcvits_tpu_torch.config import Config, load_config
+
+    raw = load_config(path).to_dict()
+    raw["train"]["learning_rate"] = 0.0
+    return Config.from_dict(raw)
+
+
+def _rank_device(rank: int) -> torch.device:
+    """A rank's card (its own under NCCL, shared round-robin under gloo),
+    TF32 off, deterministic algorithms. By default the one-process base.json
+    step differs from itself run again: HuBERT XTRALARGE's forward by
+    5.6e-6 of its largest output, and the ReLUs of the prior's FFNs turn
+    that into gradients 7.8e-3 of enc_p's largest apart
+    (tools/torch_grad_determinism.py). Deterministic, it repeats itself bit
+    for bit, so a multi-rank step's distance from it is the layout's."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the one op flagged: each sample of a reflection pad's input takes at
+    # most two addends, whose sum does not depend on their order
+    warnings.filterwarnings("ignore", message="reflection_pad1d_backward_out_cuda")
+    return dev
+
+
+def _grads(step) -> dict:
+    """Every gradient of a step, whole (gathered where sharded), on the host."""
+    from vcvits_tpu_torch.parallel.mesh import full_tensor
+
+    out = {}
+    for side, module, tp in (("gen", step.gen, step.g_tp), ("disc", step.disc, step.d_tp)):
+        for name, p in module.named_parameters():
+            if p.grad is not None:
+                out[f"{side}.{name}"] = full_tensor(p.grad, tp.get(name), step.mesh).cpu()
+    return out
+
+
+def _compare_steps(m, g, ref_m, ref_g) -> dict:
+    """A multi-rank step against one process: the worst metric's relative
+    error, and per parameter group (a model's top-level module: gen.enc_p,
+    gen.flow, ..., disc.mpd, disc.msd) the gradients' relative L2 error
+    ||err|| / ||grad|| (held), max |err| over the group's RMS and over its
+    largest gradient, and the tensor with the largest |err|. Max |err|
+    alone cannot be held tight: a rounding-sized change of the forward
+    flips a ReLU somewhere, and the heavy-tailed gradients (max / RMS up
+    to 1e3) move a whole row by a share of their largest."""
+    worst_m = max(((abs(m[k] - v) / max(abs(v), 1e-12), k) for k, v in ref_m.items()
+                   if abs(v) > 1e-6), default=(0.0, ""))
+    acc = {}
+    for k, v in ref_g.items():
+        name = ".".join(k.split(".")[:2])
+        d = (g[k] - v).double()
+        e2, g2, n, top, err, where = acc.get(name, (0.0, 0.0, 0, 0.0, -1.0, ""))
+        e = float(d.abs().max())
+        acc[name] = (e2 + float(d.pow(2).sum()), g2 + float(v.double().pow(2).sum()),
+                     n + v.numel(), max(top, float(v.abs().max())),
+                     max(err, e), k if e > err else where)
+    groups = {name: {"l2": (e2 / max(g2, 1e-300)) ** 0.5,
+                     "rms": err / max((g2 / n) ** 0.5, 1e-30),
+                     "top": err / max(top, 1e-30), "where": where}
+              for name, (e2, g2, n, top, err, where) in acc.items()}
+    return {"metric_rel": worst_m[0], "metric": worst_m[1], "n_grads": len(ref_g),
+            "same_grads": set(g) == set(ref_g), "groups": groups,
+            "worst": max(groups, key=lambda k: groups[k]["l2"])}
+
+
+def dp_rank(rank: int, n: int, batch_size: int) -> dict:
+    """(ii) One 48k_base fp32 step at `batch_size` over n data ranks against
+    the one-process step with the same seed and batch (rank 0 runs both;
+    learning rate 0, `frozen_lr`), then a second step timed."""
+    from vcvits_tpu_torch.ops import _build
+    from vcvits_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    dev = _rank_device(rank)
+    cfg = frozen_lr(CONFIG)
+    batch = train_batch(cfg, batch_size, 2.0, 4.0, np.random.default_rng(31), dev)
+    out = {}
+    if rank == 0:
+        ref = TrainStep(cfg, device=dev, seed=0)
+        ref_m = {k: float(v) for k, v in ref(batch).items()}
+        ref_g = _grads(ref)
+        del ref
+        again = TrainStep(cfg, device=dev, seed=0)  # the one process against itself
+        out["self"] = _compare_steps({k: float(v) for k, v in again(batch).items()},
+                                     _grads(again), ref_m, ref_g)
+        del again
+        torch.cuda.empty_cache()
+    mesh = make_mesh(n, 1)
+    step = TrainStep(cfg, device=dev, seed=0, mesh=mesh)
+    local = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.LAUNCHES.clear()
+    m = {k: float(v) for k, v in step(local).items()}
+    torch.cuda.synchronize()
+    out["launches"] = dict(_build.LAUNCHES)
+    if rank == 0:
+        out.update(_compare_steps(m, _grads(step), ref_m, ref_g))
+    t0 = time.perf_counter()
+    step(local)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    mesh.agree(False)
+    return out
+
+
+def tp_rank(rank: int, n: int) -> dict:
+    """(iii) base.json over n model ranks: a 10 s convert (noise 0) and one
+    fp32 step at the config's batch (learning rate 0, `frozen_lr`) against
+    world 1 (rank 0 runs those first); K1 and K2 held on the TP
+    inference's own inputs (K2's weights gathered from the shards)."""
+    from vcvits_tpu_torch.ops import _build
+    from vcvits_tpu_torch.parallel.mesh import make_mesh
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    dev = _rank_device(rank)
+    cfg = frozen_lr(BASE_CONFIG)
+    model, init_s = base_model(cfg, dev)
+    sd = model.state_dict()
+    (wav, pitch, true_len, spk), = serve_sources(cfg, np.random.default_rng(41), (10.0,))
+    x = torch.as_tensor(wav, device=dev)[None]
+    lens = torch.tensor([true_len], dtype=torch.int32, device=dev)
+    pit = torch.as_tensor(pitch, device=dev)[None]
+    sid = torch.tensor([spk], device=dev)
+    batch = train_batch(cfg, BASE_BATCH, 2.0, 4.0, np.random.default_rng(42), dev)
+    out = {"init_s": init_s}
+    if rank == 0:
+        model.eval()
+        with torch.no_grad():
+            o_ref = model.infer(x, lens, pit, sid, noise_scale=0.0)[0].float()
+        ref = TrainStep(cfg, device=dev, g_state=sd)
+        ref_m = {k: float(v) for k, v in ref(batch).items()}
+        ref_g = _grads(ref)
+        del ref
+        again = TrainStep(cfg, device=dev, g_state=sd)  # world 1 against itself
+        out["self"] = _compare_steps({k: float(v) for k, v in again(batch).items()},
+                                     _grads(again), ref_m, ref_g)
+        del again
+    del model
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, n)
+    step = TrainStep(cfg, device=dev, g_state=sd, mesh=mesh)
+    del sd
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.LAUNCHES.clear()
+    with kernel_inputs() as seen:
+        step.gen.eval()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = step.gen.infer(x, lens, pit, sid, noise_scale=0.0)[0].float()
+            torch.cuda.synchronize()
+            out["infer_ms"] = (time.perf_counter() - t0) * 1e3
+        step.gen.train()
+        m = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        out["launches"] = dict(_build.LAUNCHES)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        g = _grads(step)
+        held = {}
+        check_kernel_inputs(seen, f"multi_gpu TP rank {rank}",
+                            ("mrf", "flow_coupling_reverse"), held)
+        out["held"] = held
+    if rank == 0:
+        out.update(_compare_steps(m, g, ref_m, ref_g))
+        out["infer_rel"] = rel_err(o, o_ref)[1]
+        out["n_sharded"] = len(step.g_tp) + len(step.d_tp)
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh.agree(False)
+    return out
+
+
+def replica_phase(dev, card: str) -> dict:
+    """(iv) ServingDaemon with 2 replicas against 1 on 48k_base's perturbed
+    weights: 4 x 10 s requests at noise 0 in one batch, fp32."""
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.ops import _build
+    from vcvits_tpu_torch.serving import ServingDaemon
+
+    cfg = load_config(CONFIG)
+    vc = VoiceConverter(cfg, perturbed_state(cfg), device=dev)
+    reqs = serve_sources(cfg, np.random.default_rng(51), (10.0,) * 4)
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i % n_cards}" for i in range(2)]
+    outs, counts = {}, {}
+    for label, devs in (("1 replica", None), ("2 replicas", devices)):
+        with ServingDaemon(vc, max_batch=4, window_ms=1000.0, devices=devs) as daemon:
+            warm = [daemon.submit(w, p, n, speaker_id=s, noise_scale=0.0) for w, p, n, s in reqs]
+            [f.result(timeout=600) for f in warm]
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            futs = [daemon.submit(w, p, n, speaker_id=s, noise_scale=0.0) for w, p, n, s in reqs]
+            outs[label] = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        for k, v in _build.LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + v - before.get(k, 0)
+        print(f"multi_gpu (iv) daemon, {label} on {devs or [str(vc.device)]}: one batch of 4 x "
+              f"10 s in {wall * 1e3:.1f} ms, {4 / wall:.2f} requests/s on {card}")
+    errs = [float(np.abs(a - b).max()) for a, b in zip(outs["2 replicas"], outs["1 replica"])
+            if a.shape == b.shape]
+    if len(errs) != 4 or max(errs) > REPLICA_ATOL:
+        raise AssertionError(f"multi_gpu (iv): 2 replicas differ from 1 by {errs} "
+                             f"(limit {REPLICA_ATOL})")
+    print(f"multi_gpu (iv): 2 replicas against 1, max |err| {max(errs):.3e} (limit "
+          f"{REPLICA_ATOL})")
+    del vc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multi_gpu_phase(dev, _build, card: str) -> dict:
+    """(ii)-(v) of the multi-GPU slice: two ranks over gloo sharing the card
+    when there is one (NCCL refuses two ranks on one card), over NCCL on
+    two cards otherwise; every rank loads the kernels built before."""
+    from vcvits_tpu_torch.parallel.dryrun import dryrun_multigpu, launch
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    counts = {}
+
+    def add(delta):
+        for k, v in delta.items():
+            counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    dp = launch(dp_rank, 2, 16, backend=backend, timeout=900)
+    r0 = dp[0]
+    add(r0["launches"])
+    print(f"multi_gpu (ii) DP=2 over {backend}, 48k_base fp32 step at B=16 (8 rows a rank) "
+          f"against one process, deterministic algorithms: worst metric rel err "
+          f"{r0['metric_rel']:.3e} ({r0['metric']}; limit {MULTI_RTOL}), worst group's grad "
+          f"||err|| / ||grad|| {r0['groups'][r0['worst']]['l2']:.3e} ({r0['worst']}; limit "
+          f"{grad_limit(r0['worst'])}; {r0['n_grads']} tensors); the one process run twice equal: "
+          f"{repeats_itself(r0['self'])}; step {r0['step_ms']:.1f} ms; peak GiB per rank "
+          f"{[round(r['peak_gib'], 3) for r in dp]} on {card} ({time.perf_counter() - t0:.1f} s)")
+    print(f"multi_gpu (ii) per group (||err|| / ||grad|| (limit), max |err| / RMS, max |err| / "
+          f"largest (where)): {groups_line(r0['groups'])}")
+    if not repeats_itself(r0["self"]):
+        raise AssertionError(f"multi_gpu (ii): the one-process step differs from itself: "
+                             f"{r0['self']}")
+    if not (r0["same_grads"] and r0["metric_rel"] <= MULTI_RTOL and not off_groups(r0)):
+        raise AssertionError(f"multi_gpu (ii): the DP step is off: {off_groups(r0)} {r0}")
+    t0 = time.perf_counter()
+    tp = launch(tp_rank, 2, backend=backend, timeout=1200)
+    r0 = tp[0]
+    add(r0["launches"])
+    print(f"multi_gpu (iii) TP=2 over {backend}, base.json ({r0['n_sharded']} tensors sharded): "
+          f"10 s convert max |err| / RMS {r0['infer_rel']:.3e} (limit {TP_TOL}) in "
+          f"{r0['infer_ms']:.1f} ms; fp32 step at B={BASE_BATCH} against world 1, deterministic "
+          f"algorithms: worst metric rel err {r0['metric_rel']:.3e} ({r0['metric']}; limit "
+          f"{MULTI_RTOL}), worst group's grad ||err|| / ||grad|| "
+          f"{r0['groups'][r0['worst']]['l2']:.3e} ({r0['worst']}; limit "
+          f"{grad_limit(r0['worst'])}); world 1 "
+          f"run twice equal: {repeats_itself(r0['self'])}; step {r0['step_ms']:.1f} ms; peak GiB "
+          f"per rank {[round(r['peak_gib'], 3) for r in tp]}; K1/K2 held {r0['held']} on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"multi_gpu (iii) per group (||err|| / ||grad|| (limit), max |err| / RMS, max |err| / "
+          f"largest (where)): {groups_line(r0['groups'])}")
+    if not repeats_itself(r0["self"]):
+        raise AssertionError(f"multi_gpu (iii): world 1 differs from itself: {r0['self']}")
+    if not (r0["same_grads"] and r0["infer_rel"] <= TP_TOL and r0["metric_rel"] <= MULTI_RTOL
+            and not off_groups(r0)):
+        raise AssertionError(f"multi_gpu (iii): the TP paths are off: {off_groups(r0)} {r0}")
+    add(replica_phase(dev, card))
+    t0 = time.perf_counter()
+    rec = dryrun_multigpu(2)
+    add(rec["launches"])
+    print(f"multi_gpu (v) dryrun_multigpu(2) over {rec['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    return counts
+
+
+def torchrun_phase(train_fl: str, val_fl: str, cache: str, tmp: str, card: str) -> None:
+    """(i) cli.train --distributed under torchrun over NCCL, one rank a card
+    (world = the card count), on configs/48k_base.json with its data paths
+    changed (batch 4): 2 steps, then a second run that restores them and
+    takes one."""
+    n = torch.cuda.device_count()
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["data"].update(training_files=train_fl, validation_files=val_fl, cache_dir=cache)
+    cfg_path = os.path.join(tmp, "48k_base_torchrun.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    workdir = os.path.join(tmp, "torchrun")
+    extra = ["--model-parallel", "2"] if n % 2 == 0 and n >= 2 else []
+    for steps in (2, 3):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={n}", "-m", "vcvits_tpu_torch.cli.train", "-c", cfg_path,
+               "--workdir", workdir, "--max-steps", str(steps), "--batch-size", "4", "-s",
+               "--distributed", *extra]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            print(run.stdout[-3000:], run.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"multi_gpu (i): torchrun exited {run.returncode}")
+        ckpts = os.path.join(workdir, "checkpoints")
+        done = sorted(int(s) for s in os.listdir(ckpts) if s.isdigit()) or [None]
+        resumed = "resumed from step 2" in run.stderr
+        print(f"multi_gpu (i) torchrun --nproc-per-node={n} cli.train --distributed {' '.join(extra)}"
+              f" --max-steps {steps} over NCCL: exit 0 in {wall:.1f} s, checkpoints {done}"
+              + (f", resumed from step 2: {resumed}" if steps == 3 else "") + f" on {card}")
+        if done[-1] != steps or (steps == 3 and not resumed):
+            raise AssertionError(f"multi_gpu (i): checkpoints {done} after --max-steps {steps}")
+
+
 def batch_keys(res, suffix: str = "") -> dict:
     """A kernel's figures at the daemon's batch of 16 for the kernels line."""
     return {f"{k}_b16{suffix}": res[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -3517,12 +4135,21 @@ def main() -> int:
     paths["tts_train_step"] = tts_train_phase(dev, _build, card, tts_sd, held)
     paths["tts_loop"] = tts_loop_phase(dev, _build, card, held)
     del tts_sd
-    counts, tts = {}, {}
+    t_phase = time.perf_counter()
+    held_base = {}  # the same on the base_json paths' inputs
+    paths["base_json"] = base_json_phase(dev, _build, card, held_base)
+    print(f"phase base_json: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["multi_gpu"] = multi_gpu_phase(dev, _build, card)
+    print(f"phase multi_gpu: {time.perf_counter() - t_phase:.1f} s")
+    counts, tts, new = {}, {}, {"base_json": {}, "multi_gpu": {}}
     for path, path_counts in paths.items():
         for k, v in path_counts.items():
             counts[k] = counts.get(k, 0) + v
             if path.startswith("tts_"):
                 tts[k] = tts.get(k, 0) + v
+            if path in new:
+                new[path][k] = new[path].get(k, 0) + v
     print(f"main-path launches by path: {json.dumps(paths)}; all phases "
           f"{time.perf_counter() - t0:.1f} s on {card}")
     f32, b16 = mrf_res[torch.float32], mrf_res[torch.bfloat16]
@@ -3639,8 +4266,11 @@ def main() -> int:
          "ms_tx600": long["ms"], "device_ms_tx600": long["device_ms"],
          "plain_ms_tx600": long["plain_ms"], "bound_ms_tx600": long["bound_ms"]})
     for entry in kernels:
-        if entry["name"] in held:
-            entry["max_abs_err_tts_inputs"] = held[entry["name"]]
+        for key, errs in (("tts", held), ("base_json", held_base)):
+            if entry["name"] in errs:
+                entry[f"max_abs_err_{key}_inputs"] = errs[entry["name"]]
+        for path, path_counts in new.items():
+            entry[f"launches_{path}"] = path_counts.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

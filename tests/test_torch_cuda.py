@@ -37,7 +37,8 @@ monotonic alignment search (M1) makes the same float32 adds as its plain
 version, in the same order: its path is bit-equal, at the TTS step's
 shapes and at T_x above the block size (and with its decisions in the
 global scratch). TTS `infer` on the card matches the CPU's plain path at
-noise 0 to 1e-3 absolute, with equal lengths, masks and alignment.
+noise 0 to 1e-3 absolute, with equal lengths, masks and alignment. The
+train step's source smoothing repeats itself bit for bit on the card.
 """
 
 import numpy as np
@@ -756,3 +757,17 @@ def test_tts_infer_on_card_matches_cpu(dev):
     assert torch.equal(got[2].cpu(), ref[2]) and torch.equal(got[1].cpu(), ref[1])
     assert ref[2].sum() > 0
     np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].numpy(), atol=1e-3, rtol=0)
+
+
+def test_smooth_source_repeats_itself_on_card(dev):
+    """The train step's source smoothing (STFT -> iSTFT; at n_fft 2048 and
+    hop 512 four frames overlap each sample) gives the same samples on every
+    call on the card: its overlap-add sums in a fixed order (F.fold; an
+    index_add's atomics did not). It matches the CPU's to 1e-6."""
+    from vcvits_tpu_torch.train.audio_pipeline import smooth_source
+
+    x = torch.randn(4, 59200, generator=torch.Generator().manual_seed(0)) * 0.1
+    first = smooth_source(x.to(dev))
+    for _ in range(20):
+        assert torch.equal(smooth_source(x.to(dev)), first)
+    np.testing.assert_allclose(first.cpu().numpy(), smooth_source(x).numpy(), atol=1e-6, rtol=0)

@@ -383,15 +383,6 @@ def test_cli_serve_answers_convert(vc, tmp_path, monkeypatch):
     np.testing.assert_allclose(out, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("extra,item", [
-    pytest.param(["--data-parallel", "2"], "item 6", id="extra1-item 6")])
-def test_cli_serve_refuses_what_is_not_ported(tmp_path, extra, item):
-    from vcvits_tpu_torch.cli import serve as cli
-
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        cli.main(["--workdir", str(tmp_path / "none"), "-a", "cpu", *extra])
-
-
 @pytest.mark.parametrize("mode_args,quant", [([], True), (["--int8-decoder-mode", "w8"], "w8")])
 def test_cli_serve_int8_decoder_builds_its_daemon(vc, tmp_path, monkeypatch, mode_args, quant):
     """`cli.serve --int8-decoder`, -a cpu, on a tiny checkpoint: the daemon's

@@ -46,13 +46,12 @@ def _close(got, ref, scale_tol=1e-5, atol=None):
 
 @pytest.mark.parametrize("name", list(SETTINGS))
 def test_tables_match(name):
-    n_fft, hop, win, n_mels, sr, fmin, fmax, _ = SETTINGS[name]
+    n_fft, _, win, n_mels, sr, fmin, fmax, _ = SETTINGS[name]
     np.testing.assert_array_equal(P.hann_window(win), J.hann_window(win))
     for a, b in zip(P.dft_basis(n_fft, win), J._dft_basis(n_fft, win)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(P.mel_filterbank(sr, n_fft, n_mels, fmin, fmax),
                                   J.mel_filterbank(sr, n_fft, n_mels, fmin, fmax))
-    np.testing.assert_array_equal(P._frame_indices(5, n_fft, hop), J._frame_indices(5, n_fft, hop))
 
 
 @pytest.mark.parametrize("jax_method", ["fft", "matmul"])

@@ -25,8 +25,8 @@ read what the logger hands it.
 * `python -m vcvits_tpu_torch.cli.train` trains in bf16 when the config
   says `"fp16_run": true` (as both shipped configs do) or `--bf16` is
   given, and honours `accumulate_grad_batches` (one k = 2 cycle: two
-  mini-steps, one update); it refuses what is not ported (multi-GPU),
-  naming the ROADMAP item, before it builds anything.
+  mini-steps, one update). Its multi-GPU flags are
+  tests/test_torch_parallel*.py's.
 """
 
 import os
@@ -310,22 +310,6 @@ def test_cli_trains_bf16_and_accumulates(run, tmp_path, monkeypatch, extra, fp16
     saved = CheckpointManager(str(workdir / "checkpoints")).restore()
     assert saved["step"] == max_steps and saved["accum"]["updates"] == max_steps // k
     assert all(v.dtype == torch.float32 for v in saved["gen"].values())
-
-
-@pytest.mark.parametrize("extra,fp16_run", [
-    (["--model-parallel", "2"], False), (["--distributed"], False)])
-def test_cli_refuses_what_is_not_ported(run, tmp_path, extra, fp16_run):
-    import json
-
-    from vcvits_tpu_torch.cli import train as cli
-
-    tmp, fl, _, _, _ = run
-    cfg_path = tmp_path / "cfg.json"
-    cfg_path.write_text(json.dumps(_cfg(tmp, fl, fp16_run=fp16_run)))
-    workdir = tmp_path / "logs"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cli.main(["-c", str(cfg_path), "-a", "cpu", "-s", "--workdir", str(workdir), *extra])
-    assert not workdir.exists()
 
 
 def test_cli_trains_with_hubert_ckpt(run, tmp_path, monkeypatch):

@@ -19,8 +19,9 @@ names one. float32 runs with TF32 off; --bf16 computes in bfloat16.
 --int8-decoder builds the daemon's converter with the int8 decoder
 (--int8-decoder-mode w8a8, the default: dynamic W8A8 on the int8 tensor
 cores; w8: weight-only); the windowed /stream decodes in that mode too, the
-incremental one on the float weights, as in JAX. --data-parallel above 1
-raises NotImplementedError until its slice is ported.
+incremental one on the float weights, as in JAX. --data-parallel N runs
+N replicas of the generator, one on each of cuda:0 .. cuda:N-1 (N of the
+CPU with -a cpu), each batch's rows split over them (serving.py).
 """
 
 from __future__ import annotations
@@ -51,17 +52,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--int8-decoder-mode", choices=("w8a8", "w8"), default="w8a8",
                    help="w8a8 = dynamic int8 activations and weights on the int8 tensor cores; "
                         "w8 = weight-only int8, activations in the compute dtype")
-    # not ported yet: raises
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="not ported above 1 (ROADMAP Queue 1 item 6)")
+                   help="replicas over N devices (cuda:0 .. cuda:N-1), a power of two")
     return p.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    if args.data_parallel > 1:
-        raise NotImplementedError("data-parallel serving over several GPUs is not ported "
-                                  "(ROADMAP Queue 1 item 6)")
     logging.basicConfig(level=logging.INFO)
 
     import torch
@@ -75,11 +72,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(args.config) if args.config else None
+    devices = None
+    if args.data_parallel > 1:
+        n = args.data_parallel
+        if args.accelerator == "cuda" and n > torch.cuda.device_count():
+            raise ValueError(f"--data-parallel {n} needs {n} GPUs, "
+                             f"{torch.cuda.device_count()} present")
+        devices = ["cpu"] * n if args.accelerator == "cpu" else [f"cuda:{i}" for i in range(n)]
     vc = VoiceConverter.from_checkpoint(
         args.workdir, cfg=cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.accelerator, quant_int8=quant_mode(args))
+        device=devices[0] if devices else args.accelerator, quant_int8=quant_mode(args))
     with ServingDaemon(vc, max_batch=args.max_batch, window_ms=args.window_ms,
-                       transfer=args.transfer) as daemon:
+                       transfer=args.transfer, devices=devices) as daemon:
         server = serve_http(daemon, host=args.host, port=args.port,
                             max_stream_sessions=args.max_stream_sessions)
         logging.info("serving on http://%s:%d (max_batch=%d window=%.0fms, %s)", args.host,

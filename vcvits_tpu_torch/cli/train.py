@@ -10,8 +10,20 @@ on the card with the auto-resume of train/trainer.py. `"fp16_run": true`
 float32 (the targets, the mel loss, the optimizer) runs with TF32 off.
 --hubert-ckpt loads a fairseq HuBERT checkpoint (convert/hubert_torch.py)
 into the generator's frozen HuBERT before training (a resumed run keeps
-its checkpoint's), and the --preload dump uses it. --model-parallel > 1
-and --distributed raise NotImplementedError until their slice is ported.
+its checkpoint's), and the --preload dump uses it.
+
+Several GPUs, one process each, under torchrun:
+
+    torchrun --nproc-per-node 4 -m vcvits_tpu_torch.cli.train \
+        -c configs/base.json --workdir logs --distributed --model-parallel 2
+
+--distributed joins torchrun's process group (parallel/mesh.py:
+distributed_init; NCCL, each rank on cuda:LOCAL_RANK; without torchrun's
+environment it trains on one process), and --model-parallel N shards the
+layers of JAX's tensor-parallel rule over groups of N ranks; the data
+axis takes gcd(batch_size, world / N) ranks, each with its rows of every
+global batch (train/trainer.py). Rank 0 alone preprocesses, dumps
+features and writes the run's files; the others wait for it.
 """
 
 from __future__ import annotations
@@ -49,11 +61,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="compute in bfloat16 (also selected by \"fp16_run\": true)")
     p.add_argument("--hubert-ckpt", default=None,
                    help="a fairseq HuBERT .pt for the frozen content encoder")
-    # not ported yet: each raises
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported above 1 (ROADMAP Queue 1 item 6)")
+                   help="ranks that share one model (tensor parallelism); must divide the "
+                        "world size")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 6)")
+                   help="join torchrun's process group (one process per GPU)")
     return p.parse_args(argv)
 
 
@@ -63,14 +75,17 @@ def main(argv: Optional[List[str]] = None) -> None:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
     import torch
+    import torch.distributed as dist
 
     from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.parallel.mesh import distributed_init, local_device, local_tensor
     from vcvits_tpu_torch.data.dataset import VoiceConversionDataset, preprocess
     from vcvits_tpu_torch.utils.provenance import check_git_hash, get_logger
 
     cfg = load_config(args.config)
-    if args.model_parallel > 1 or args.distributed:
-        raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 6)")
+    if args.distributed:
+        distributed_init()
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     dtype = torch.bfloat16 if (args.bf16 or cfg.train.fp16_run) else torch.float32
     if args.batch_size:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
@@ -85,31 +100,42 @@ def main(argv: Optional[List[str]] = None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    check_git_hash(args.workdir)
-    get_logger(args.workdir).info("vcvits_tpu_torch.cli.train args: %s", vars(args))
+    if main_rank:
+        check_git_hash(args.workdir)
+        get_logger(args.workdir).info("vcvits_tpu_torch.cli.train args: %s", vars(args))
 
     files = [f for f in (cfg.data.training_files, cfg.data.validation_files) if os.path.exists(f)]
-    if not args.skip_preprocess:
+    if not args.skip_preprocess and main_rank:
         for f in files:
             preprocess(VoiceConversionDataset(f, cfg.data), num_workers=8)
 
     from vcvits_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(cfg, workdir=args.workdir, device=args.accelerator, preload=args.preload,
-                      preload_shift_aug=args.preload_shift_aug, dtype=dtype)
-    if args.hubert_ckpt:
+    trainer = Trainer(cfg, workdir=args.workdir, device=local_device(args.accelerator),
+                      preload=args.preload, preload_shift_aug=args.preload_shift_aug,
+                      model_parallel=args.model_parallel, dtype=dtype)
+    # the caches rank 0 wrote are complete before any rank reads them
+    trainer.mesh.agree(False)
+    if args.hubert_ckpt and trainer.train_step is not None:
         from vcvits_tpu_torch.convert.hubert_torch import load_fairseq_checkpoint
         from vcvits_tpu_torch.models.synthesizer import hubert_config_for
 
-        trainer.train_step.gen.enc_p.hubert.load_state_dict(load_fairseq_checkpoint(
-            args.hubert_ckpt, hubert_config_for(cfg.model.hubert_channels)))
+        whole = load_fairseq_checkpoint(args.hubert_ckpt,
+                                        hubert_config_for(cfg.model.hubert_channels))
+        tp = trainer.train_step.g_tp  # this rank's slices where the layers are sharded
+        trainer.train_step.gen.enc_p.hubert.load_state_dict(
+            {k: local_tensor(v, tp.get("enc_p.hubert." + k), trainer.mesh)
+             for k, v in whole.items()})
     if args.preload or args.preload_dump:
         from vcvits_tpu_torch.data.preload import SHIFT_SET, dump_hubert_features
 
         if not args.hubert_ckpt:
             logging.warning("--preload without --hubert-ckpt: dumping features from the "
                             "seeded HuBERT of the trainer's generator")
-        for f in files:
+        if trainer.mesh.model > 1:
+            raise ValueError("--preload dumps features with a whole HuBERT: dump them with "
+                             "--model-parallel 1 first")
+        for f in (files if main_rank else ()):
             # shift variants for the training set only (no augmentation on validation)
             shifts = SHIFT_SET if args.preload_shift_aug and f == cfg.data.training_files \
                 else (0,)
@@ -117,6 +143,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                                      trainer.train_step.gen.enc_p.hubert, pitch_shifts=shifts,
                                      device=trainer.device, dtype=dtype)
             logging.info("dumped %d HuBERT feature files for %s", n, f)
+        trainer.mesh.agree(False)
         if args.preload_dump:
             return
     if args.profile:
@@ -130,6 +157,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     else:
         trainer.fit(max_steps=args.max_steps, max_seconds=args.time_limit)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

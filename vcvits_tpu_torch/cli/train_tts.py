@@ -7,7 +7,11 @@ vcvits_tpu/cli/train_tts.py). Filelist lines are "path|sid|text".
 Trains `TTSTrainer` on the card, resuming from the latest checkpoint of
 --workdir. `"fp16_run": true` (the shipped configs) or --bf16 computes in
 bfloat16, float32 otherwise; what stays float32 runs with TF32 off.
---device cpu runs the plain PyTorch path.
+--device cpu runs the plain PyTorch path. Under torchrun (one process per
+GPU) --distributed trains data-parallel, as JAX's TTS trainer:
+
+    torchrun --nproc-per-node 2 -m vcvits_tpu_torch.cli.train_tts \
+        -c configs/48k_base.json --filelist tts.txt --distributed
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="intersperse blank ids between symbols (VITS's data.add_blank)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the card), or cpu for the plain PyTorch path")
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group (data parallelism, one process per GPU)")
     return p.parse_args(argv)
 
 
@@ -38,18 +44,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
 
     import torch
+    import torch.distributed as dist
 
     from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.parallel.mesh import distributed_init, local_device
     from vcvits_tpu_torch.train.tts_trainer import TTSTrainer
 
     cfg = load_config(args.config)
+    if args.distributed:
+        distributed_init()
     dtype = torch.bfloat16 if (args.bf16 or cfg.train.fp16_run) else torch.float32
     # float32 means float32: TF32 off in cuDNN's convolutions and in matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    trainer = TTSTrainer(cfg, workdir=args.workdir, device=args.device, dtype=dtype,
-                         cleaners=args.cleaners, add_blank=args.add_blank)
+    trainer = TTSTrainer(cfg, workdir=args.workdir, device=local_device(args.device),
+                         dtype=dtype, cleaners=args.cleaners, add_blank=args.add_blank)
     trainer.fit(args.filelist, max_steps=args.max_steps)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

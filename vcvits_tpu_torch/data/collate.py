@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 import random
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -70,13 +70,18 @@ def crop_aligned(xw: np.ndarray, yw: np.ndarray, pw: np.ndarray, hw, cfg: DataCo
 
 
 def collate(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, bucket: int,
-            rng: random.Random | None = None) -> Dict[str, np.ndarray]:
-    """items -> a padded batch with the shapes of source bucket `bucket`."""
+            rng: random.Random | None = None, rows: Optional[Tuple[int, int]] = None
+            ) -> Dict[str, np.ndarray]:
+    """items -> a padded batch with the shapes of source bucket `bucket`.
+    `rows` = (lo, hi) fills only those rows of the batch (a data-parallel
+    rank's); the crop draws of every item are still taken in order, so
+    those rows equal the same rows of the whole batch."""
     rng = rng or random
     if bucket % alignment_unit(cfg):
         raise ValueError(f"bucket {bucket} is not a whole number of alignment units")
     ds = cfg.hubert_downsample
-    b = len(items)
+    lo, hi = rows or (0, len(items))
+    b = hi - lo
     tx = bucket
     ty = bucket * cfg.target_sampling_rate // cfg.source_sampling_rate
     tp = bucket // ds
@@ -92,13 +97,16 @@ def collate(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, bucket: int
     feats = (np.zeros((b, tp, items[0]["hubert_features"].shape[-1]), np.float32)
              if has_feats else None)
 
-    for i, item in enumerate(items):
+    for j, item in enumerate(items):
         xw, yw, pw = item["x_wav"], item["y_wav"], item["x_pitch"]
         hw = item.get("hubert_features")
         n = len(xw)
         if n > tx:
             xw, yw, pw, hw = crop_aligned(xw, yw, pw, hw, cfg, tx, rng)
             n = tx
+        if not lo <= j < hi:
+            continue
+        i = j - lo
         x[i, :n] = xw
         ny = min(len(yw), ty)
         y[i, :ny] = yw[:ny]

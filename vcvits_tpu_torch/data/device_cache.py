@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import logging
 import random
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vcvits_tpu_torch.config import DataConfig
 from vcvits_tpu_torch.data.collate import bucket_lengths, crop_aligned, pick_bucket
-from vcvits_tpu_torch.data.loader import BATCH_DTYPES
+from vcvits_tpu_torch.data.loader import BATCH_DTYPES, shard_rows
 from vcvits_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -51,9 +51,13 @@ class DeviceBatcher:
     `epoch_batches(epoch)` and `len()` as `BucketedLoader`."""
 
     def __init__(self, dataset, cfg: DataConfig, batch_size: int, seed: int = 1234,
-                 shuffle: bool = True, drop_last: bool = True, device="cuda"):
+                 shuffle: bool = True, drop_last: bool = True, device="cuda",
+                 shard: Optional[Tuple[int, int]] = None):
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        # a data-parallel rank's rows of each global batch (the corpus is
+        # replicated on every rank, as JAX replicates it)
+        self.rows = shard_rows(batch_size, shard)
         self.seed = seed
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -109,6 +113,8 @@ class DeviceBatcher:
         return self._n_items // self.batch_size
 
     def _gather(self, b: int, rows: List[int]) -> Dict[str, torch.Tensor]:
+        if self.rows is not None:
+            rows = rows[self.rows[0]:self.rows[1]]
         idx = torch.tensor(rows, dtype=torch.int64).to(self.device, non_blocking=True)
         return {k: v.index_select(0, idx) for k, v in self._store[b].items()}
 

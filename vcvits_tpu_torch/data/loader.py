@@ -14,7 +14,7 @@ from __future__ import annotations
 import queue
 import random
 import threading
-from typing import Dict, Iterator, List, Mapping
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +30,15 @@ BATCH_DTYPES = {"x_wav": torch.float32, "x_wav_lengths": torch.int32,
 
 
 class BucketedLoader:
-    """Yields padded batches; each batch's items share one length bucket."""
+    """Yields padded batches; each batch's items share one length bucket.
+    With `shard` = (rank, n) it yields that rank's contiguous rows of each
+    global batch of `batch_size` (parallel/mesh.py:shard_batch's rows):
+    every rank walks the same order, from the same seed, and collates only
+    its rows, padded to the global batch's bucket."""
 
     def __init__(self, dataset, cfg: DataConfig, batch_size: int, seed: int = 1234,
-                 drop_last: bool = True, shuffle: bool = True):
+                 drop_last: bool = True, shuffle: bool = True,
+                 shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -41,6 +46,7 @@ class BucketedLoader:
         self.drop_last = drop_last
         self.shuffle = shuffle
         self.buckets = bucket_lengths(cfg)
+        self.rows = shard_rows(batch_size, shard)
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -60,7 +66,8 @@ class BucketedLoader:
             b = pick_bucket(len(item["x_wav"]), self.buckets)
             pools[b].append(idx)
             if len(pools[b]) == self.batch_size:
-                yield collate([self.dataset.get_item(i) for i in pools[b]], self.cfg, b, rng)
+                yield collate([self.dataset.get_item(i) for i in pools[b]], self.cfg, b, rng,
+                              self.rows)
                 pools[b] = []
         if not self.drop_last:
             for b, pool in pools.items():
@@ -69,7 +76,19 @@ class BucketedLoader:
                     # fill the batch by repeating its items (fixed shapes)
                     while len(items) < self.batch_size:
                         items.append(items[len(items) % len(pool)])
-                    yield collate(items, self.cfg, b, rng)
+                    yield collate(items, self.cfg, b, rng, self.rows)
+
+
+def shard_rows(batch_size: int, shard: Optional[Tuple[int, int]]) -> Optional[Tuple[int, int]]:
+    """(lo, hi) of rank r of n in a batch of `batch_size`, or None for the
+    whole batch."""
+    if shard is None or shard[1] == 1:
+        return None
+    r, n = shard
+    if batch_size % n:
+        raise ValueError(f"batch of {batch_size} does not split over {n} data ranks")
+    k = batch_size // n
+    return r * k, (r + 1) * k
 
 
 def prefetch(iterator: Iterator, size: int = 2) -> Iterator:

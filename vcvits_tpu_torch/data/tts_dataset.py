@@ -89,13 +89,17 @@ class TTSDataset:
 
 
 def collate_tts(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, text_bucket: int,
-                audio_bucket: int, rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+                audio_bucket: int, rng: Optional[random.Random] = None,
+                rows: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
     """Pad to the static (text_bucket ids, audio_bucket samples) shapes; a
-    longer clip is cropped at a hop-aligned offset drawn from `rng`."""
+    longer clip is cropped at a hop-aligned offset drawn from `rng`.
+    `rows` = (lo, hi) fills only those rows (a data-parallel rank's); every
+    item's crop is still drawn in order."""
     rng = rng or random
     hop = cfg.hop_length
     audio_bucket = (audio_bucket // hop) * hop
-    b = len(items)
+    lo, hi = rows or (0, len(items))
+    b = hi - lo
     t_frames = audio_bucket // hop
 
     text = np.zeros((b, text_bucket), np.int64)
@@ -104,10 +108,7 @@ def collate_tts(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, text_bu
     y_lens = np.zeros((b,), np.int32)
     pitch = np.zeros((b, t_frames), np.float32)
     sid = np.zeros((b,), np.int32)
-    for i, item in enumerate(items):
-        seq = item["text"][:text_bucket]
-        text[i, :len(seq)] = seq
-        text_lens[i] = len(seq)
+    for j, item in enumerate(items):
         yw, pw = item["y_wav"], item["pitch"]
         n = len(yw)
         if n > audio_bucket:
@@ -116,6 +117,12 @@ def collate_tts(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, text_bu
             yw = yw[off:off + audio_bucket]
             pw = pw[off // hop:][:t_frames]
             n = audio_bucket
+        if not lo <= j < hi:
+            continue
+        i = j - lo
+        seq = item["text"][:text_bucket]
+        text[i, :len(seq)] = seq
+        text_lens[i] = len(seq)
         n = (n // hop) * hop
         y[i, :n] = yw[:n]
         y_lens[i] = n

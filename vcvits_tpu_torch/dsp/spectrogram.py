@@ -36,10 +36,6 @@ def _padded_window(n_fft: int, win_length: int, dtype=np.float32) -> np.ndarray:
     return win.astype(dtype)
 
 
-def _frame_indices(num_frames: int, n_fft: int, hop: int) -> np.ndarray:
-    return (np.arange(num_frames)[:, None] * hop + np.arange(n_fft)[None, :]).astype(np.int64)
-
-
 def num_frames(t: int, n_fft: int, hop_length: int) -> int:
     """Frames of a [.., t] signal after the (n_fft-hop)/2 reflect pad."""
     pad = (n_fft - hop_length) // 2
@@ -91,24 +87,30 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
     return torch.sqrt(re * re + im * im + 1e-6)
 
 
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """[B, frames, n] -> [B, n + hop*(frames-1)], the frames summed where
+    they overlap. F.fold (col2im) sums each sample's frames in a fixed
+    order on the GPU too; an index_add there sums them with atomics, in an
+    order that changes from run to run (a base.json train step then
+    differed from itself: tools/torch_grad_determinism.py)."""
+    _, t_frames, n = frames.shape
+    total = n + hop_length * (t_frames - 1)
+    return F.fold(frames.transpose(1, 2), (1, total), (1, n), stride=(1, hop_length))[:, 0, 0]
+
+
 def istft(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int, hop_length: int,
           win_length: int) -> torch.Tensor:
     """Inverse STFT with center=True trimming (torch.istft semantics):
     windowed overlap-add over the squared-window envelope.
     [B, frames, n_fft//2+1] -> [B, hop*(frames-1)]."""
-    b, t_frames, _ = spec_re.shape
+    t_frames = spec_re.shape[1]
     win = torch.as_tensor(_padded_window(n_fft, win_length), device=spec_re.device)
     frames = torch.fft.irfft(torch.complex(spec_re, spec_im), n=n_fft, dim=-1) * win
-    total = n_fft + hop_length * (t_frames - 1)
-    idx = torch.as_tensor(_frame_indices(t_frames, n_fft, hop_length).reshape(-1),
-                          device=spec_re.device)
-    wav = torch.zeros(b, total, dtype=frames.dtype, device=frames.device)
-    wav = wav.index_add(1, idx, frames.reshape(b, -1))
-    wsq = torch.zeros(total, dtype=win.dtype, device=win.device)
-    wsq = wsq.index_add(0, idx, (win * win).repeat(t_frames))
-    wav = wav / torch.clamp_min(wsq, 1e-11)[None, :]
+    wav = overlap_add(frames, hop_length)
+    wsq = overlap_add((win * win).expand(1, t_frames, n_fft), hop_length)
+    wav = wav / torch.clamp_min(wsq, 1e-11)
     trim = n_fft // 2
-    return wav[:, trim:total - trim]
+    return wav[:, trim:wav.shape[-1] - trim]
 
 
 @functools.lru_cache(maxsize=8)

@@ -69,8 +69,8 @@ class RelativeMultiHeadAttention(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         std = self.k_channels ** -0.5
         with torch.no_grad():
-            self.emb_rel_k.copy_(torch.randn(self.emb_rel_k.shape, generator=gen) * std)
-            self.emb_rel_v.copy_(torch.randn(self.emb_rel_v.shape, generator=gen) * std)
+            for p in (self.emb_rel_k, self.emb_rel_v):
+                p.copy_(torch.randn(p.shape, generator=gen, device=gen.device) * std)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

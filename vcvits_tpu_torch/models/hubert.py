@@ -4,7 +4,11 @@ Counterpart of vcvits_tpu/models/hubert.py: a 7-layer strided conv front
 end (320x downsample, no conv bias, a per-channel GroupNorm on conv 0, exact
 erf-GELU), `feat_ln` -> `post_extract_proj`, a grouped positional conv
 (k=128, 16 groups, padded 64 each side, last frame dropped), `encoder_ln`,
-then post-LN transformer layers. Plain PyTorch ops throughout; the JAX
+then post-LN transformer layers. Under tensor parallelism attention is
+column-parallel on q/k/v (each rank its contiguous heads) and row-parallel
+on out_proj, the FFN column-parallel on fc1 and row-parallel on fc2, and
+the grouped positional conv computes whole groups per rank and gathers
+its channels (models/layers.py). Plain PyTorch ops throughout; the JAX
 package's im2col of conv 0 is a TPU lane rewrite of the same conv and is
 not carried over.
 """
@@ -100,17 +104,20 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, c = x.shape
         d = c // self.heads
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        # under tensor parallelism q/k/v hold this rank's contiguous heads
+        h = q.shape[-1] // d
 
         def heads(y):
-            return y.reshape(b, t, self.heads, d).transpose(1, 2)
+            return y.reshape(b, t, h, d).transpose(1, 2)
 
-        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
+        q, k, v = heads(q), heads(k), heads(v)
         scores = torch.matmul(q / d ** 0.5, k.transpose(-1, -2))
         if mask is not None:
             scores = scores.masked_fill(mask[:, None, None, :] == 0,
                                         torch.finfo(torch.float32).min)
         p = torch.softmax(scores, dim=-1)
-        out = torch.matmul(p, v).transpose(1, 2).reshape(b, t, c)
+        out = torch.matmul(p, v).transpose(1, 2).reshape(b, t, h * d)
         return self.out_proj(out)
 
 

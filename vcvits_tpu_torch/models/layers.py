@@ -17,6 +17,14 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
 * The decoder's `Conv1d` / `ConvTranspose1d` take `quant_int8` (JAX's int8
   modes, ops/int8_conv.py); their int8 weights are folded and quantized
   once on the host and cached (`host_kernel`, `FoldCache`).
+* Under tensor parallelism (parallel/mesh.py:shard_params_tp) a layer
+  holds a slice of its kernel and a `Shard` in `tp`: `Linear` is column-
+  (q/k/v/fc1: its output stays sliced) or row-parallel (out_proj/fc2: a
+  sliced input, the partial outputs summed); `Conv1d` and `Conv2dNorm`
+  compute their slice of output channels and gather them, weight norm
+  folded with this rank's slice of `g`; `ConvTranspose1d` is
+  row-parallel on its input channels. `kernel()` gathers the whole kernel
+  for the fused kernels that take whole weights (K2's WaveNet stack).
 * Every leaf module has `reset_parameters(generator)` mirroring the JAX
   package's initialiser for that parameter, so `init_weights(model, seed)`
   gives a seeded model with no checkpoint.
@@ -24,8 +32,10 @@ PyTorch's [B, C, T] inside and run `F.conv1d` / `F.conv_transpose1d`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Optional, Tuple, Union
 
 import torch
@@ -34,6 +44,7 @@ from torch import nn
 
 from vcvits_tpu_torch.ops.int8_conv import (
     conv1d_w8a8, dequantize, prepare_w8a8, quantize_weight_per_channel)
+from vcvits_tpu_torch.parallel.tp import copy_to, gather, reduce_from, split
 
 LRELU_SLOPE = 0.1
 
@@ -42,14 +53,39 @@ def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_rows(lo: int, hi: int, total: int):
+    """Within it, every `dropout` draws its mask for a batch of `total` rows
+    and keeps rows [lo, hi): a data-parallel rank holding those rows of
+    the global batch draws what the one-process step draws for them."""
+    prev = getattr(_ROWS, "rows", None)
+    _ROWS.rows = (lo, hi, total)
+    try:
+        yield
+    finally:
+        _ROWS.rows = prev
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1-rate and scale
     it by 1/(1-rate); the identity when deterministic or rate == 0. The keep
-    mask is drawn from `generator` (on x's device), or the default one."""
+    mask is drawn from `generator` (on x's device), or the default one, for
+    the global batch under `dropout_rows`."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rows = getattr(_ROWS, "rows", None)
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        lo, hi, total = rows
+        if x.shape[0] != hi - lo:
+            raise ValueError(f"dropout on {x.shape[0]} rows under dropout_rows({lo}, {hi})")
+        keep = torch.rand((total, *x.shape[1:]), generator=generator,
+                          device=x.device)[lo:hi] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -71,7 +107,7 @@ def torch_same_padding(kernel_size: int, dilation: int = 1) -> Tuple[int, int]:
 
 def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
     with torch.no_grad():
-        p.copy_(torch.randn(p.shape, generator=gen) * std)
+        p.copy_(torch.randn(p.shape, generator=gen, device=gen.device) * std)
 
 
 def _fill_kernel(p: torch.Tensor, init: str, fan_in: int, gen: torch.Generator) -> None:
@@ -130,17 +166,26 @@ class Linear(nn.Module):
         if self.kernel_init == "xavier_uniform":
             lim = math.sqrt(6.0 / (in_f + out_f))
             with torch.no_grad():
-                self.weight.copy_((torch.rand(self.weight.shape, generator=gen) * 2 - 1) * lim)
+                self.weight.copy_((torch.rand(self.weight.shape, generator=gen, device=gen.device)
+                                   * 2 - 1) * lim)
         else:
             _fill_kernel(self.weight, self.kernel_init, in_f, gen)
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.zero_()
 
+    tp = None  # a Shard under tensor parallelism (parallel/mesh.py)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp.kind == "col":  # a slice of the outputs (and of the bias)
+            return F.linear(copy_to(x.to(dt), self.tp), self.weight.to(dt), b)
+        # row: x holds this rank's slice of the inputs
+        y = reduce_from(F.linear(x.to(dt), self.weight.to(dt)), self.tp)
+        return y if b is None else y + b
 
 
 class Embedding(nn.Module):
@@ -237,16 +282,36 @@ class _ConvBase(FoldCache):
         boundary, and a W8A8 decoder carries one moved code on to many)."""
         return self.kernel(host=True).to(self.dtype)
 
+    tp = None  # a Shard under tensor parallelism (parallel/mesh.py)
+
     def kernel(self, host: bool = False) -> torch.Tensor:
         """The float32 kernel, weight norm or spectral norm folded (from host
-        copies of the parameters, without a graph, with `host`)."""
+        copies of the parameters, without a graph, with `host`); under
+        tensor parallelism the whole kernel, gathered from the shards."""
+        if self.tp is not None:
+            if host:
+                raise NotImplementedError("a host copy of a sharded kernel")
+            return gather(self.local_kernel(), 0, self.tp)
+        return self.local_kernel(host)
+
+    def local_kernel(self, host: bool = False) -> torch.Tensor:
+        """This rank's slice of the folded kernel (the whole kernel without
+        tensor parallelism): weight norm folds this rank's slice of `g`."""
         get = (lambda p: p.detach().cpu()) if host else (lambda p: p)
         if self.weight_norm:
-            v = get(self.v)
-            return get(self.g) * v / torch.clamp_min(_norm_except(v, 0), 1e-12)
+            v, g = get(self.v), get(self.g)
+            if self.tp is not None:
+                g = split(g, 0, self.tp)
+            return g * v / torch.clamp_min(_norm_except(v, 0), 1e-12)
         if self.spectral_norm:
             return spectral_normalize(get(self.v))
         return get(self.weight)
+
+    def _gathered(self, y: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+        """A column-parallel layer's output channels (the last axis) joined,
+        then its bias."""
+        y = gather(y, -1, self.tp)
+        return y if b is None else y + b
 
     def device(self) -> torch.device:
         return next(self.parameters()).device
@@ -349,6 +414,12 @@ class Conv1d(_ConvBase):
         xt = x.to(dt).transpose(1, 2)
         if self.pad != (0, 0):
             xt = F.pad(xt, self.pad)
+        if self.tp is not None:  # column-parallel: this rank's output channels
+            # a grouped conv's whole groups read only their own input channels
+            xin = split(xt, 1, self.tp) if self.groups > 1 else copy_to(xt, self.tp)
+            y = conv_op(F.conv1d, xin, self.local_kernel().to(dt), None, stride=self.stride,
+                        dilation=self.dilation, groups=max(self.groups // self.tp.size, 1))
+            return self._gathered(y.transpose(1, 2), b)
         y = conv_op(F.conv1d, xt, self.compute_kernel(), b, stride=self.stride,
                     dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
@@ -412,6 +483,12 @@ class ConvTranspose1d(_ConvBase):
             y = conv_op(F.conv1d, xt, w, None if b is None else b.to(dt)).transpose(1, 2)
             return y.reshape(y.shape[0], -1, w.shape[0] // self.stride)
         b = self.bias.to(dt) if self.bias is not None else None
+        if self.tp is not None:  # row-parallel: this rank's input channels
+            xt = split(x.to(dt), -1, self.tp).transpose(1, 2)
+            y = conv_op(F.conv_transpose1d, xt, self.local_kernel().to(dt), None,
+                        stride=self.stride, padding=self.padding)
+            y = reduce_from(y, self.tp).transpose(1, 2)
+            return y if b is None else y + b
         y = conv_op(F.conv_transpose1d, x.to(dt).transpose(1, 2), self.kernel().to(dt), b,
                     stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
@@ -440,17 +517,23 @@ class Conv2dNorm(_ConvBase):
         xt = x.to(dt).permute(0, 3, 1, 2)
         if any(self.pad):
             xt = F.pad(xt, self.pad)
+        if self.tp is not None:  # column-parallel: this rank's output channels
+            y = conv_op(F.conv2d, copy_to(xt, self.tp), self.local_kernel().to(dt), None,
+                        stride=self.strides)
+            return self._gathered(y.permute(0, 2, 3, 1), self.bias.to(dt))
         y = conv_op(F.conv2d, xt, self.kernel().to(dt), self.bias.to(dt), stride=self.strides)
         return y.permute(0, 2, 3, 1)
 
 
-def init_weights(model: nn.Module, seed: int) -> nn.Module:
+def init_weights(model: nn.Module, seed: int, device=None) -> nn.Module:
     """Seeded initialisation of every parameter, mirroring the JAX package's
     initialisers (lecun/he normal kernels, N(0, 0.01) HiFi-GAN convs, a
     zero flow `post`, weight-norm `g` = ||v||). Each module's
     `reset_parameters` fills its own direct parameters; the draws are made
-    on the CPU in module order and copied to wherever the parameters live."""
-    gen = torch.Generator().manual_seed(seed)
+    in module order on the CPU, or from a generator on `device` (another
+    stream of numbers for the same seed, and far faster for a billion
+    parameters on the card), and copied to wherever the parameters live."""
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     for m in model.modules():
         if hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)

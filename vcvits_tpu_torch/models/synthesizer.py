@@ -36,6 +36,11 @@ from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import nearest_interp, rand_slice_segments, sequence_mask
 
 
+# `infer`'s default output frames per 16 kHz source sample: 48 kHz frames of
+# 512 samples
+DEFAULT_LENGTH_SCALE = (48000 / 512) / 16000
+
+
 def hubert_config_for(hubert_channels: int) -> HubertConfig:
     return HUBERT_XTRALARGE if hubert_channels == 1280 else HUBERT_BASE
 
@@ -51,10 +56,13 @@ class SynthesizerSVC(nn.Module):
                  hubert_cfg: Optional[HubertConfig] = None,
                  dec_quant_int8: Union[bool, str] = False,
                  spec_channels: int = 1025, segment_size: int = 32, p_dropout: float = 0.0,
-                 dtype=torch.float32, device="cuda", seed: Optional[int] = 0):
+                 dtype=torch.float32, device="cuda", seed: Optional[int] = 0,
+                 init_on_device: bool = False):
         """Builds on `device` ("cuda" by default; raises when no GPU is
         present unless device="cpu"). `seed` initialises the weights as the
-        JAX package does; pass seed=None and load a state dict instead.
+        JAX package does (drawn on `device` with `init_on_device`, see
+        models/layers.py:init_weights); pass seed=None and load a state
+        dict instead.
         `dec_quant_int8` selects the int8 decoder (models/hifigan.py): True
         for dynamic W8A8, "w8" for weight-only; inference only."""
         super().__init__()
@@ -75,14 +83,18 @@ class SynthesizerSVC(nn.Module):
             else None
         self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels, 5, 1, 16,
                                       gin_channels=gin_channels, dtype=dtype)
-        if seed is not None:
+        if seed is not None and init_on_device:
+            self.to(device)
+            init_weights(self, seed, device=device)
+        elif seed is not None:
             init_weights(self, seed)
         self.to(device)
 
     @classmethod
     def from_config(cls, cfg: Config, dtype=torch.float32, device="cuda",
                     seed: Optional[int] = 0, hubert_cfg: Optional[HubertConfig] = None,
-                    dec_quant_int8: Union[bool, str, None] = None) -> "SynthesizerSVC":
+                    dec_quant_int8: Union[bool, str, None] = None,
+                    init_on_device: bool = False) -> "SynthesizerSVC":
         """The model of `cfg`; `dec_quant_int8`, where given, overrides the
         config's, as `VoiceConverter(quant_int8=...)` clones JAX's."""
         m = cfg.model
@@ -101,7 +113,8 @@ class SynthesizerSVC(nn.Module):
             dec_quant_int8=m.dec_quant_int8 if dec_quant_int8 is None else dec_quant_int8,
             spec_channels=cfg.data.spec_channels,
             segment_size=cfg.train.segment_size // cfg.data.hop_length,
-            p_dropout=m.p_dropout, dtype=dtype, device=device, seed=seed)
+            p_dropout=m.p_dropout, dtype=dtype, device=device, seed=seed,
+            init_on_device=init_on_device)
 
     def _speaker(self, sid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if self.emb_g is not None and sid is not None:
@@ -140,7 +153,7 @@ class SynthesizerSVC(nn.Module):
     @torch.no_grad()
     def infer(self, x_wav: torch.Tensor, x_wav_lengths: torch.Tensor, x_pitch: torch.Tensor,
               sid: Optional[torch.Tensor] = None, noise_scale: float = 1.0,
-              length_scale: float = (48000 / 512) / 16000, max_len: Optional[int] = None,
+              length_scale: float = DEFAULT_LENGTH_SCALE, max_len: Optional[int] = None,
               generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None):
         """x_wav [B, T] 16 kHz, x_wav_lengths [B], x_pitch [B, T//320].
 

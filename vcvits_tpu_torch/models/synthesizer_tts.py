@@ -25,7 +25,7 @@ Random draws are explicit: injected (tests inject JAX's) or drawn from a
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -124,8 +124,11 @@ class SynthesizerTTS(nn.Module):
                 deterministic: bool = True, eps: Optional[torch.Tensor] = None,
                 e_q: Optional[torch.Tensor] = None, ids_str: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                dropout_generator: Optional[torch.Generator] = None):
+                dropout_generator: Optional[torch.Generator] = None,
+                mask_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         """The training forward. x [B, T_x] ids, y_spec [B, T_y, F].
+        `mask_sum` maps this batch's sum(x_mask), the duration loss's
+        denominator, to the global batch's (a data-parallel rank's).
 
         `eps` [B, T_y, inter] (the posterior's noise), `e_q` [B, T_x, 2]
         (the SDP's) and `ids_str` [B] (the segment starts) replace the draws
@@ -145,7 +148,8 @@ class SynthesizerTTS(nn.Module):
         l_length = self.duration_predictor(
             h, x_mask, w=w, g=g, noise=e_q, generator=generator,
             deterministic=deterministic, dropout_generator=dropout_generator)
-        l_length = l_length / torch.sum(x_mask)
+        den = torch.sum(x_mask)
+        l_length = l_length / (den if mask_sum is None else mask_sum(den))
 
         pitch_pred = self.pitch_predictor(z, y_mask, deterministic, dropout_generator)
         energy_pred = self.energy_predictor(z, y_mask, deterministic, dropout_generator)

@@ -29,16 +29,24 @@ too). A request that rides alone gives exactly
 conversion, and in a batch of mixed lengths every row keeps its length and
 the longest row its values.
 
-One device per daemon: data-parallel serving over several GPUs is not
-ported (ROADMAP Queue 1 item 6).
+Data parallelism (`devices=[...]`, JAX's `mesh` with a data axis): one
+replica of the generator per device, its weights copied once; a batch is
+padded to max(next power of two, replicas) rows, as JAX pads it, its eps
+drawn once for the whole batch on the first device (so each row gets
+what one replica would give it), and its rows split contiguously over
+the replicas, each running on its own thread and CUDA stream; the rows
+come back in order. A device may be named twice (two replicas on one
+card, or on the CPU).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -46,7 +54,9 @@ import numpy as np
 import torch
 
 from vcvits_tpu_torch.infer import VoiceConverter
+from vcvits_tpu_torch.models.synthesizer import DEFAULT_LENGTH_SCALE
 from vcvits_tpu_torch.streaming import StreamingConverter
+from vcvits_tpu_torch.utils.device import resolve_device
 
 HUBERT_DOWNSAMPLE = 320  # source samples per content frame (the pitch cadence)
 
@@ -107,15 +117,28 @@ class ServingDaemon:
     """
 
     def __init__(self, vc: VoiceConverter, max_batch: int = 16, window_ms: float = 25.0,
-                 queue_size: int = 256, transfer: str = "f32"):
+                 queue_size: int = 256, transfer: str = "f32",
+                 devices: Optional[List] = None):
         """transfer: the wire format of the device->host audio and, for "i16"
         and "mulaw", of the host->device sources. "f32" is exact; "f16"
         halves and "i16" quarters the output copy (PCM-16 precision);
         "mulaw" keeps i16 sources and ships 8-bit mu-law codes (error
-        about 0.022 |x|)."""
+        about 0.022 |x|). devices: one replica per entry (a power of two
+        of them, at most max_batch; see the module docstring); None runs
+        the converter's own generator alone."""
         if transfer not in ("f32", "f16", "i16", "mulaw"):
             raise ValueError(f"transfer must be f32|f16|i16|mulaw, got {transfer!r}")
+        if devices is not None:
+            n = len(devices)
+            if n < 1 or n & (n - 1):
+                raise ValueError(f"the replica count must be a power of two, got {n}")
+            if max_batch < n:
+                raise ValueError(f"max_batch {max_batch} < {n} replicas: every batch must "
+                                 "split evenly")
         self.vc = vc
+        self._replicas = self._make_replicas(vc, devices)
+        self._pool = (ThreadPoolExecutor(len(self._replicas), thread_name_prefix="replica")
+                      if len(self._replicas) > 1 else None)
         self.max_batch = int(max_batch)
         self.window_ms = float(window_ms)
         self.transfer = transfer
@@ -185,6 +208,31 @@ class ServingDaemon:
             self._thread.join(timeout=timeout)
             self._resolve_q.put(None)
             self._resolver.join(timeout=timeout)
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+
+    # -------------------------------------------------------------- replicas
+    @staticmethod
+    def _make_replicas(vc: VoiceConverter, devices) -> List[tuple]:
+        """(generator, device, stream) per replica: the converter's own
+        generator on its device, a copy of it elsewhere (made once)."""
+        if devices is None:
+            return [(vc.gen, vc.device, None)]
+        out = []
+        for d in devices:
+            dev = resolve_device(d)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            same = dev == vc.device or (dev.type == vc.device.type == "cuda"
+                                        and vc.device.index in (None, dev.index))
+            gen = vc.gen if same and not out else copy.deepcopy(vc.gen).to(dev)
+            stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            out.append((gen, dev, stream))
+        return out
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [dev for _, dev, _ in self._replicas]
 
     def __enter__(self):
         return self
@@ -232,23 +280,62 @@ class ServingDaemon:
         return batch
 
     def _run_batch(self, wavs: np.ndarray, lens: np.ndarray, pitches: np.ndarray,
-                   sids: np.ndarray, seed: int, noise_scale: float):
-        """The batch program on the converter's device: `infer` on [bsz,
-        pad_len] sources, each row's valid output length (counted in
-        float32: a bf16 sum of more than 256 ones rounds) and the audio cast
-        to the wire format there, before any copy to the host."""
-        vc = self.vc
-        dev = vc.device
+                   sids: np.ndarray, seed: int, noise_scale: float) -> List[tuple]:
+        """The batch on the replicas: each one's contiguous rows through
+        `_run_rows` on its own thread and stream, the eps of the whole
+        batch drawn once on the first replica's device. Returns each
+        replica's started copy (`_start_copy`), in row order."""
+        n = len(self._replicas)
+        if n == 1:
+            gen, dev, _ = self._replicas[0]
+            return [self._run_rows(gen, dev, None, wavs, lens, pitches, sids, seed,
+                                   noise_scale, None)]
+        eps_ready = None
+        dev0 = self._replicas[0][1]
+        k = wavs.shape[0] // n
+        t_out = int(round(wavs.shape[1] * DEFAULT_LENGTH_SCALE))
         with torch.inference_mode():
+            eps = torch.randn((wavs.shape[0], t_out, self.vc.cfg.model.inter_channels),
+                              generator=torch.Generator(device=dev0).manual_seed(seed),
+                              device=dev0, dtype=self.vc.gen.dtype)
+            if dev0.type == "cuda":
+                eps_ready = torch.cuda.Event()
+                eps_ready.record()
+        futures = [self._pool.submit(self._run_rows, gen, dev, stream, wavs[i * k:(i + 1) * k],
+                                     lens[i * k:(i + 1) * k], pitches[i * k:(i + 1) * k],
+                                     sids[i * k:(i + 1) * k], seed, noise_scale,
+                                     eps[i * k:(i + 1) * k], eps_ready)
+                   for i, (gen, dev, stream) in enumerate(self._replicas)]
+        return [f.result() for f in futures]
+
+    def _run_rows(self, model, dev: torch.device, stream, wavs: np.ndarray, lens: np.ndarray,
+                  pitches: np.ndarray, sids: np.ndarray, seed: int, noise_scale: float,
+                  eps: Optional[torch.Tensor], eps_ready=None) -> tuple:
+        """One replica's rows: `infer` on [rows, pad_len] sources, each
+        row's valid output length (counted in float32: a bf16 sum of more
+        than 256 ones rounds) and the audio cast to the wire format on the
+        device, then the copy to the host started (`_start_copy`)."""
+        ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        with ctx, torch.inference_mode():
+            if stream is not None and eps is not None:
+                stream.wait_event(eps_ready)  # the draw, made on the dispatcher's stream
+                if eps.device == dev:
+                    eps.record_stream(stream)
+                else:  # copied before the dispatcher may free the first device's draw
+                    eps = eps.to(dev)
+                    stream.synchronize()
             wav = torch.from_numpy(wavs).to(dev)
             if self.transfer in ("i16", "mulaw"):  # mulaw rides i16 sources
                 wav = wav.to(torch.float32) / 32767.0
             gen = torch.Generator(device=dev).manual_seed(seed)
-            o, y_mask, _ = vc.gen.infer(
+            o, y_mask, _ = model.infer(
                 wav, torch.from_numpy(lens).to(dev), torch.from_numpy(pitches).to(dev),
-                torch.from_numpy(sids).to(dev), noise_scale=noise_scale, generator=gen)
+                torch.from_numpy(sids).to(dev), noise_scale=noise_scale, generator=gen,
+                eps=None if eps is None else eps.to(dev))
             n_valid = (y_mask.reshape(y_mask.shape[0], -1).float().sum(dim=-1)
-                       .to(torch.int32) * vc.cfg.data.hop_length)
+                       .to(torch.int32) * self.vc.cfg.data.hop_length)
             o = o[:, :, 0]
             if self.transfer == "f16":
                 o = o.to(torch.float16)
@@ -258,7 +345,7 @@ class ServingDaemon:
                 o = _mulaw_encode(o.float())
             else:
                 o = o.float()
-            return o, n_valid
+            return self._start_copy(o, n_valid)
 
     @staticmethod
     def _start_copy(o: torch.Tensor, n_valid: torch.Tensor):
@@ -284,11 +371,13 @@ class ServingDaemon:
             item = self._resolve_q.get()
             if item is None:
                 break
-            batch, o_host, nv_host, event = item
+            batch, parts = item
             try:
-                if event is not None:
-                    event.synchronize()  # this batch's copy only, not later work
-                o_np, nv = o_host.numpy(), nv_host.numpy()
+                for _, _, event in parts:
+                    if event is not None:
+                        event.synchronize()  # this batch's copies only, not later work
+                o_np = np.concatenate([o.numpy() for o, _, _ in parts])
+                nv = np.concatenate([n.numpy() for _, n, _ in parts])
                 t_done = time.perf_counter()
                 outs = []
                 for row in range(len(batch)):
@@ -313,17 +402,19 @@ class ServingDaemon:
                         r.future.set_exception(e)
 
     def _loop(self) -> None:
-        dev = self.vc.device
+        dev = self._replicas[0][1]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)  # this thread's launches and events on dev
         i16 = self.transfer in ("i16", "mulaw")
+        n_replicas = len(self._replicas)
         while True:
             batch = self._gather()
             if batch is None:
                 break
             try:
                 n = len(batch)
-                bsz = _next_batch_size(n, self.max_batch)
+                # a power of two >= the replica count splits evenly
+                bsz = max(_next_batch_size(n, self.max_batch), n_replicas)
                 pad_len = max(len(r.wav16k) for r in batch)
                 wavs = np.zeros((bsz, pad_len), np.int16 if i16 else np.float32)
                 pitches = np.zeros((bsz, pad_len // HUBERT_DOWNSAMPLE), np.int64)
@@ -338,11 +429,11 @@ class ServingDaemon:
                     lens[row] = r.true_len
                     sids[row] = r.speaker_id
                 lens[n:] = 1  # batch-pad rows: minimal valid length
-                o, n_valid = self._run_batch(wavs, lens, pitches, sids, batch[0].rng_seed,
-                                             batch[0].noise_scale)
+                parts = self._run_batch(wavs, lens, pitches, sids, batch[0].rng_seed,
+                                        batch[0].noise_scale)
                 # hand off to the resolver: the copy overlaps the NEXT batch's
                 # gather and launches (at most 2 batches behind)
-                self._resolve_q.put((batch, *self._start_copy(o, n_valid)))
+                self._resolve_q.put((batch, parts))
             except Exception as e:  # noqa: BLE001 - resolve the futures, keep serving
                 for r in batch:
                     if not r.future.done():

@@ -1,12 +1,15 @@
 """GAN losses: LS-GAN, feature matching and the masked Gaussian KL.
 
 Counterpart of vcvits_tpu/train/losses.py; every sum is float32 whatever
-the compute dtype.
+the compute dtype. Under data parallelism each rank's means are over its
+own rows; the train steps weight them by the rank's share of the global
+batch and the KL divides by the global mask sum, so the sum over the data
+group is the global batch's loss.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,10 +52,15 @@ def generator_loss(disc_gen: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List
 
 
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor, logs_p: torch.Tensor,
-            z_mask: torch.Tensor) -> torch.Tensor:
+            z_mask: torch.Tensor, mask_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+            ) -> torch.Tensor:
     """Masked KL(q || prior) of the flowed posterior; [B, T, C] inputs,
-    [B, T, 1] mask, normalised by the mask's sum."""
+    [B, T, 1] mask, normalised by the mask's sum. `mask_sum` maps this
+    batch's mask sum to the denominator: a data-parallel rank passes the
+    sum over its data group, so its value is its share of the global
+    batch's KL."""
     z_p, logs_q, m_p, logs_p, z_mask = (t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    den = torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (den if mask_sum is None else mask_sum(den))

@@ -38,12 +38,28 @@ Every random draw is explicit: `StepDraws` injects the posterior noise and
 the segment starts of either forward (tests inject JAX's), and what is not
 injected comes from the step's generators. The metrics dict has the JAX
 step's keys, as 0-dim float32 tensors.
+
+On a `Mesh` (parallel/mesh.py) of data x model ranks, each rank's batch
+holds its rows of the global batch (`cfg.train.batch_size`), and every
+loss is the global batch's, as under JAX's single controller: a rank's
+means count for its share of the rows, the KL divides by the global mask
+sum, the gradients are summed over the data group after each backward
+(and before an accumulator folds them), and the metrics are summed there
+too. Every rank draws the global batch's noise, segment starts and
+dropout masks from the shared seeded generators and keeps its rows, so a
+data-parallel step is the one-process step on the same batch and seed;
+injected `StepDraws` are the global batch's. The layers `tp_spec` marks
+are sharded over the model group (their AdamW state follows them), the
+grad norm counts a sharded gradient's squares once over that group, and
+`state_dict` / `load_state_dict` carry whole tensors, so a checkpoint
+restores into any layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +69,11 @@ from vcvits_tpu_torch.dsp.spectrogram import mel_spectrogram
 from vcvits_tpu_torch.models.content_encoder import HUBERT_PAD
 from vcvits_tpu_torch.models.discriminators import Discriminators
 from vcvits_tpu_torch.models.hubert import HubertConfig
-from vcvits_tpu_torch.models.layers import init_weights
+from vcvits_tpu_torch.models.layers import dropout_rows, init_weights
 from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
 from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
+from vcvits_tpu_torch.parallel.mesh import (
+    Mesh, full_tensor, grad_sq_norm, local_tensor, shard_params_tp)
 from vcvits_tpu_torch.train.audio_pipeline import smooth_source
 from vcvits_tpu_torch.train.losses import (
     discriminator_loss, feature_loss, generator_loss, kl_loss)
@@ -63,9 +81,13 @@ from vcvits_tpu_torch.train.state import (
     GradAccumulator, accumulate_and_step, exponential_epoch_schedule, make_optimizer,
     trainable_parameters)
 from vcvits_tpu_torch.utils.device import resolve_device
-from vcvits_tpu_torch.utils.masking import slice_segments
+from vcvits_tpu_torch.utils.masking import segment_starts, slice_segments
 
 Batch = Mapping[str, torch.Tensor]
+
+# metrics that are the same on every rank (the others are summed over the
+# data group)
+GLOBAL_METRICS = ("learning_rate", "grad_norm_g", "grad_norm_d")
 
 
 @dataclass
@@ -89,10 +111,13 @@ def check_step_config(cfg: Config, dtype: torch.dtype) -> None:
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
 
 
-def _grad_norm(params) -> torch.Tensor:
+def _grad_norm(params, sharded: Sequence = (), mesh: Optional[Mesh] = None) -> torch.Tensor:
     """optax.global_norm of the gradients (a missing gradient counts 0),
     summed in float64: a float32 sum over the discriminators' 50M squares
-    drifts by 1e-4."""
+    drifts by 1e-4. Under tensor parallelism the `sharded` parameters'
+    squares are summed over the model group once."""
+    if mesh is not None and mesh.model > 1:
+        return torch.sqrt(grad_sq_norm(params, sharded, mesh)).float()
     norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float64)
              for p in params if p.grad is not None]
     return torch.linalg.vector_norm(torch.stack(norms)).float()
@@ -135,16 +160,19 @@ class GANStep:
     dtype (float32 or bfloat16); `cfg.trainer.accumulate_grad_batches`
     mini-steps make an update. `step` counts calls (mini-steps, JAX's
     `state.step`), `updates` the AdamW steps taken, and `mini_step` the
-    calls since the last update."""
+    calls since the last update. `mesh` is the data x model layout (one
+    process by default; see the module docstring)."""
 
     def __init__(self, cfg: Config, device: torch.device, dtype: torch.dtype,
                  gen: torch.nn.Module, g_params, d_state: Optional[Mapping[str, torch.Tensor]],
-                 seed: int, steps_per_epoch: Optional[int]):
+                 seed: int, steps_per_epoch: Optional[int], mesh: Optional[Mesh] = None):
         """`gen` (built, on `device`) with its trainable `g_params`; the
-        discriminators from `d_state`, or seeded with seed + 1."""
+        discriminators from `d_state`, or seeded with seed + 1. Both are
+        built whole and then sharded over the mesh's model group."""
         self.cfg = cfg
         self.device = device
         self.dtype = dtype
+        self.mesh = mesh or Mesh()
         self.gen = gen
         self.disc = Discriminators.from_config(cfg, dtype=dtype)
         if d_state is not None:
@@ -154,8 +182,13 @@ class GANStep:
         self.disc.to(device)
         self.gen.train()
         self.disc.train()
+        # {parameter name: sharded axis} of each model (empty at model = 1)
+        self.g_tp = shard_params_tp(self.gen, self.mesh)
+        self.d_tp = shard_params_tp(self.disc, self.mesh)
         self.g_params = list(g_params)
         self.d_params = list(self.disc.parameters())
+        self.sharded = [p for m, tp in ((self.gen, self.g_tp), (self.disc, self.d_tp))
+                        for n, p in m.named_parameters() if n in tp]
         self.g_opt = make_optimizer(self.g_params, cfg)
         self.d_opt = make_optimizer(self.d_params, cfg)
         k = cfg.trainer.accumulate_grad_batches
@@ -179,44 +212,109 @@ class GANStep:
         state, keyed by parameter name), "accum" (the accumulator:
         "mini_step", "updates", and G's and D's running-mean gradients "g"
         and "d" by parameter name, empty when k == 1)}. Tensors are the
-        live ones."""
-        return {"step": self.step, "gen": self.gen.state_dict(), "disc": self.disc.state_dict(),
-                "g_opt": self._opt_state(self.gen, self.g_opt),
-                "d_opt": self._opt_state(self.disc, self.d_opt),
+        live ones; under tensor parallelism a sharded one is gathered whole
+        (a collective: every rank of the model group calls this)."""
+        gt, dt = self.g_tp, self.d_tp
+        return {"step": self.step,
+                "gen": self._whole(self.gen.state_dict(), gt),
+                "disc": self._whole(self.disc.state_dict(), dt),
+                "g_opt": self._opt_state(self.gen, self.g_opt, gt),
+                "d_opt": self._opt_state(self.disc, self.d_opt, dt),
                 "accum": {"mini_step": self.mini_step, "updates": self.updates,
-                          "g": self.g_acc.state_dict(self._names(self.gen)),
-                          "d": self.d_acc.state_dict(self._names(self.disc))}}
+                          "g": self._whole(self.g_acc.state_dict(self._names(self.gen)), gt),
+                          "d": self._whole(self.d_acc.state_dict(self._names(self.disc)), dt)}}
 
     def load_state_dict(self, state: Mapping[str, object]) -> None:
-        """Load a `state_dict()`-shaped state, tensors copied to the step's
-        device; a parameter missing from an optimizer's state starts fresh.
-        A state without "accum" (written before accumulation was ported,
-        always with k == 1, so one update a step) starts a fresh
-        accumulator at `updates` = `step`."""
+        """Load a `state_dict()`-shaped state of whole tensors, each copied
+        to the step's device (this rank's slice of a sharded one); a
+        parameter missing from an optimizer's state starts fresh. A state
+        without "accum" (written before accumulation was ported, always
+        with k == 1, so one update a step) starts a fresh accumulator at
+        `updates` = `step`."""
+        gt, dt = self.g_tp, self.d_tp
         self.step = int(state["step"])
-        self.gen.load_state_dict(state["gen"])
-        self.disc.load_state_dict(state["disc"])
-        for module, opt, key in ((self.gen, self.g_opt, "g_opt"), (self.disc, self.d_opt, "d_opt")):
+        self.gen.load_state_dict(self._local(state["gen"], gt))
+        self.disc.load_state_dict(self._local(state["disc"], dt))
+        for module, opt, key, tp in ((self.gen, self.g_opt, "g_opt", gt),
+                                     (self.disc, self.d_opt, "d_opt", dt)):
             opt.state.clear()
             named = dict(module.named_parameters())
             for name, moments in state[key].items():
                 p = named[name]
-                opt.state[p] = {k: v.detach().to("cpu" if k == "step" else p.device, copy=True)
+                opt.state[p] = {k: (v.detach().to("cpu", copy=True) if k == "step" else
+                                    local_tensor(v.detach(), tp.get(name), self.mesh)
+                                    .to(p.device, copy=True))
                                 for k, v in moments.items()}
         accum = state.get("accum") or {"mini_step": 0, "updates": self.step, "g": {}, "d": {}}
         self.mini_step = int(accum["mini_step"]) % self.g_acc.k
         self.updates = int(accum["updates"])
-        self.g_acc.load_state_dict(accum["g"], self._names(self.gen))
-        self.d_acc.load_state_dict(accum["d"], self._names(self.disc))
+        self.g_acc.load_state_dict(self._local(accum["g"], gt), self._names(self.gen))
+        self.d_acc.load_state_dict(self._local(accum["d"], dt), self._names(self.disc))
+
+    def _whole(self, tensors: Mapping[str, torch.Tensor], tp: Mapping[str, int]) -> Dict:
+        return {n: full_tensor(v, tp.get(n), self.mesh) for n, v in tensors.items()}
+
+    def _local(self, tensors: Mapping[str, torch.Tensor], tp: Mapping[str, int]) -> Dict:
+        return {n: local_tensor(v, tp.get(n), self.mesh) for n, v in tensors.items()}
 
     @staticmethod
     def _names(module: torch.nn.Module) -> Dict[int, str]:
         return {id(p): name for name, p in module.named_parameters()}
 
-    @staticmethod
-    def _opt_state(module: torch.nn.Module, opt: torch.optim.Optimizer) -> Dict[str, Dict]:
-        return {name: dict(opt.state[p]) for name, p in module.named_parameters()
-                if p in opt.state and opt.state[p]}
+    def _opt_state(self, module: torch.nn.Module, opt: torch.optim.Optimizer,
+                   tp: Mapping[str, int]) -> Dict[str, Dict]:
+        return {name: {k: v if k == "step" else full_tensor(v, tp.get(name), self.mesh)
+                       for k, v in opt.state[p].items()}
+                for name, p in module.named_parameters() if p in opt.state and opt.state[p]}
+
+    # ------------------------------------------------------- data parallelism
+    def _rows(self, b_local: int):
+        """(lo, hi, B): this rank's rows of the global batch of B."""
+        lo = self.mesh.data_rank * b_local
+        return lo, lo + b_local, b_local * self.mesh.data
+
+    def _share(self, loss: torch.Tensor) -> torch.Tensor:
+        """A mean over this rank's rows as its share of the global mean."""
+        return loss if self.mesh.data == 1 else loss / self.mesh.data
+
+    def _mask_sum(self, den: torch.Tensor) -> torch.Tensor:
+        return self.mesh.sum_data(den.float()).to(den.dtype)
+
+    def _dropout_rows(self, b_local: int):
+        """Dropout masks drawn for the global batch, this rank's rows kept."""
+        if self.mesh.data == 1:
+            return contextlib.nullcontext()
+        return dropout_rows(*self._rows(b_local))
+
+    def _global_noise(self, given: Optional[torch.Tensor], b_local: int, shape,
+                      dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """This rank's rows of a normal draw for the global batch (`shape`
+        is a row's), or of the injected global `given`; None at data = 1
+        with nothing injected (the model draws itself)."""
+        if self.mesh.data == 1:
+            return given
+        lo, hi, total = self._rows(b_local)
+        if given is None:
+            given = torch.randn((total, *shape), generator=self.generator, device=self.device,
+                                dtype=dtype)
+        return given[lo:hi]
+
+    def _global_starts(self, given: Optional[torch.Tensor], lengths: torch.Tensor,
+                       segment: int) -> Optional[torch.Tensor]:
+        """This rank's segment starts: its rows of the global batch's
+        uniform draws (or of the injected global starts)."""
+        if self.mesh.data == 1:
+            return given
+        lo, hi, total = self._rows(lengths.shape[0])
+        if given is not None:
+            return given[lo:hi]
+        u = torch.rand(total, generator=self.generator, device=self.device)[lo:hi]
+        return segment_starts(u, lengths, segment)
+
+    def _sum_and_norm(self, params) -> torch.Tensor:
+        """The gradients summed over the data group, then their global norm."""
+        self.mesh.sum_grads(params)
+        return _grad_norm(params, self.sharded, self.mesh)
 
     def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
         """The target's segment at `ids`, [B, segment, 1] in the compute dtype."""
@@ -255,7 +353,8 @@ class TrainStep(GANStep):
                  hubert_cfg: Optional[HubertConfig] = None, seed: int = 0,
                  g_state: Optional[Mapping[str, torch.Tensor]] = None,
                  d_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None):
         device = resolve_device(device)
         check_step_config(cfg, dtype)
         gen = SynthesizerSVC.from_config(cfg, dtype=dtype, device=device,
@@ -266,7 +365,7 @@ class TrainStep(GANStep):
         for p in gen.enc_p.hubert.parameters():
             p.requires_grad_(False)
         super().__init__(cfg, device, dtype, gen, trainable_parameters(gen), d_state, seed,
-                         steps_per_epoch)
+                         steps_per_epoch, mesh)
 
     def _features(self, batch: Batch):
         """(source wav, shared HuBERT features or None, y_spec, y_mel), frozen;
@@ -287,18 +386,27 @@ class TrainStep(GANStep):
         return x_wav.to(dt), None if hub is None else hub.to(dt), y_spec.to(dt), y_mel
 
     def _gen_forward(self, batch: Batch, x_wav, hub, y_spec, eps, ids_str):
-        return self.gen(x_wav, batch["x_wav_lengths"], batch["x_pitch"], y_spec,
-                        batch["y_wav_lengths"] // self.cfg.data.hop_length,
-                        batch.get("sid"), deterministic=False, hubert_features=hub,
-                        eps=eps, ids_str=ids_str, generator=self.generator,
-                        dropout_generator=self.dropout_generator)
+        """The training forward; on a data mesh with this rank's rows of the
+        global batch's draws (eps, then the segment starts, as the model
+        draws them) and dropout masks."""
+        b = x_wav.shape[0]
+        y_lengths = batch["y_wav_lengths"] // self.cfg.data.hop_length
+        eps = self._global_noise(eps, b, (y_spec.shape[1], self.cfg.model.inter_channels),
+                                 self.dtype)
+        ids_str = self._global_starts(ids_str, y_lengths, self.gen.segment_size)
+        with self._dropout_rows(b):
+            return self.gen(x_wav, batch["x_wav_lengths"], batch["x_pitch"], y_spec, y_lengths,
+                            batch.get("sid"), deterministic=False, hubert_features=hub,
+                            eps=eps, ids_str=ids_str, generator=self.generator,
+                            dropout_generator=self.dropout_generator)
 
     def __call__(self, batch: Batch, draws: Optional[StepDraws] = None,
                  timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
         """One step on a batch of padded tensors on the step's device:
         x_wav [B, Tx] 16 kHz, x_wav_lengths [B], x_pitch [B, Tx//320],
-        y_wav [B, Ty] 48 kHz, y_wav_lengths [B], sid [B]. With `timings`
-        (a dict) on the card, each section's device ms is added to it."""
+        y_wav [B, Ty] 48 kHz, y_wav_lengths [B], sid [B] (on a data mesh,
+        this rank's rows). With `timings` (a dict) on the card, each
+        section's device ms is added to it."""
         draws = draws or StepDraws()
         sections = _Sections(timings, self.device)
         # AdamW's schedule counts real updates, the logged rate mini-steps
@@ -311,6 +419,7 @@ class TrainStep(GANStep):
         metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
                    **g_metrics, **d_metrics}
         self._advance()
+        metrics = self.mesh.sum_metrics(metrics, keep=GLOBAL_METRICS)
         return {k: v.detach() for k, v in metrics.items()}
 
     def _generator_step(self, batch: Batch, feats, draws: StepDraws, sections: _Sections):
@@ -325,21 +434,23 @@ class TrainStep(GANStep):
         sections.mark("G forward")
         y_seg = self._target_segment(batch, ids)
         (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
-        loss_p_fm = feature_loss(p_fr, p_fg)
-        loss_s_fm = feature_loss(s_fr, s_fg)
-        loss_p_gen, _ = generator_loss(p_lg)
-        loss_s_gen, _ = generator_loss(s_lg)
+        share = self._share
+        loss_p_fm = share(feature_loss(p_fr, p_fg))
+        loss_s_fm = share(feature_loss(s_fr, s_fg))
+        loss_p_gen = share(generator_loss(p_lg)[0])
+        loss_s_gen = share(generator_loss(s_lg)[0])
         o_mel = self._mel_of(o[:, :, 0].float())
         y_mel_slice = slice_segments(y_mel, ids, t.segment_size // cfg.data.hop_length)
-        loss_mel = torch.mean(torch.abs(o_mel - y_mel_slice)) * t.c_mel
-        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl
+        loss_mel = share(torch.mean(torch.abs(o_mel - y_mel_slice))) * t.c_mel
+        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask,
+                          self._mask_sum if self.mesh.data > 1 else None) * t.c_kl
         loss_g = (loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_mel + loss_kl
         sections.mark("G losses (MPD + MSD forward, mel, KL)")
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
         sections.mark("G backward")
         self.disc.requires_grad_(True)
-        grad_norm_g = _grad_norm(self.g_params)
+        grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
         sections.mark("G grad norm + AdamW")
         metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
@@ -367,12 +478,15 @@ class TrainStep(GANStep):
         (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg2, o2)
         loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
         loss_s, s_r, s_g = discriminator_loss(s_lr, s_lg)
+        share = self._share
+        loss_p, loss_s = share(loss_p), share(loss_s)
+        p_r, p_g, s_r, s_g = ([share(v) for v in terms] for terms in (p_r, p_g, s_r, s_g))
         loss_d = loss_p + loss_s
         sections.mark("D forward + loss")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
         sections.mark("D backward")
-        grad_norm_d = _grad_norm(self.d_params)
+        grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, t.grad_clip)
         sections.mark("D grad norm + AdamW")
         metrics = {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d,

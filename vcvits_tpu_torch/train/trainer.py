@@ -16,6 +16,18 @@ the objective metrics through K4, and logs them with the audio.
 Behaviours mirrored from the JAX trainer as they are: every `fit` reseeds
 the step's generators from `cfg.train.seed` (no random state is
 checkpointed), and after a resume the epoch loop starts again at epoch 0.
+
+Under torch.distributed (one process per rank, parallel/mesh.py:
+distributed_init) the trainer runs on `training_mesh(batch_size,
+model_parallel)`: each data rank's loader yields its rows of every global
+batch (the same order from the same seed everywhere), the step keeps the
+global batch's losses, and the model group shares the sharded layers.
+Rank 0 alone writes config.json, TensorBoard and the checkpoints; every
+rank restores them (whole tensors) into its own layout. A stop request,
+a signal or the `max_seconds` deadline (rank 0's clock) is agreed by all
+ranks at the step boundary, so no rank is left in a collective alone.
+Validation runs on every rank (the model group's collectives need them
+all) and rank 0 logs it.
 """
 
 from __future__ import annotations
@@ -39,11 +51,25 @@ from vcvits_tpu_torch.data.preload import PreloadVoiceConversionDataset
 from vcvits_tpu_torch.eval import evaluate_pair
 from vcvits_tpu_torch.models.hubert import HubertConfig
 from vcvits_tpu_torch.ops.stft_mel import mel_spectrogram
+from vcvits_tpu_torch.parallel.mesh import training_mesh
 from vcvits_tpu_torch.train.checkpoint import CheckpointManager
 from vcvits_tpu_torch.train.step import TrainStep
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.logging import TensorBoardLogger, mel_to_image
 from vcvits_tpu_torch.utils.memory import trim_host_memory
+
+class NullLogger:
+    """TensorBoardLogger's interface, writing nothing (the ranks but 0)."""
+
+    def summarize(self, *args, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
 
 # steps between malloc_trim(0) calls in fit(): often enough to bound the
 # host arena's growth, rarely enough that the syscall's cost is invisible
@@ -66,23 +92,27 @@ class Trainer:
         Writes `config.json` into `workdir`, beside `tb/` (TensorBoard) and
         `checkpoints/`. `preload` trains from precomputed HuBERT features
         (data/preload.py); `preload_shift_aug` adds the per-epoch random
-        source pitch shift."""
-        if int(model_parallel) > 1:
-            raise NotImplementedError("model_parallel > 1 is not ported (ROADMAP Queue 1 item 6, "
-                                      "multi-GPU)")
+        source pitch shift. Under torch.distributed, `model_parallel`
+        ranks share a model (it must divide the world; see the module
+        docstring); on one process it must be 1."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.workdir = workdir
         self.preload = preload
         self.preload_shift_aug = preload_shift_aug
-        os.makedirs(workdir, exist_ok=True)
-        with open(os.path.join(workdir, "config.json"), "w") as f:
-            json.dump(cfg.to_dict(), f, indent=1)
-        self.tb = TensorBoardLogger(os.path.join(workdir, "tb"))
+        self.mesh = training_mesh(cfg.train.batch_size, model_parallel)
+        if self.mesh.is_main:
+            os.makedirs(workdir, exist_ok=True)
+            with open(os.path.join(workdir, "config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=1)
+        self.tb = TensorBoardLogger(os.path.join(workdir, "tb")) if self.mesh.is_main \
+            else NullLogger()
         self.ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
         self.dtype = dtype
+        # a rank the mesh leaves out builds nothing, and its fit returns None
         self.train_step = TrainStep(cfg, device=self.device, hubert_cfg=hubert_cfg,
-                                    seed=cfg.train.seed, dtype=dtype)
+                                    seed=cfg.train.seed, dtype=dtype,
+                                    mesh=self.mesh) if self.mesh.active else None
         # the schedule's epoch length: the config's, else the first fit's loader's
         self._steps_per_epoch: Optional[int] = cfg.train.steps_per_epoch
         # set by request_stop() or a signal handler, read at each step boundary
@@ -114,10 +144,22 @@ class Trainer:
                 logger.info("device_data_cache=auto: corpus ~%.0f MB exceeds the %.0f MB gate; "
                             "streaming loader kept", est / 1e6, t.device_cache_max_bytes / 1e6)
                 return train_loader
-        batcher = DeviceBatcher(train_ds, self.cfg.data, t.batch_size, device=self.device)
+        batcher = DeviceBatcher(train_ds, self.cfg.data, t.batch_size, device=self.device,
+                                shard=self._shard())
         logger.info("device_data_cache: %d items resident on %s (%d batches/epoch)",
                     len(train_ds), self.device, len(batcher))
         return batcher
+
+    def _shard(self):
+        """This rank's place on the data axis, for the loaders."""
+        return self.mesh.data_rank, self.mesh.data
+
+    def save(self, step_no: int) -> None:
+        """Checkpoint the step's state: every rank gathers (the sharded
+        tensors' collectives), rank 0 writes."""
+        state = self.train_step.state_dict()
+        if self.mesh.is_main:
+            self.ckpt.save(step_no, state)
 
     def resume_or_init(self) -> int:
         """Restore the latest checkpoint, if there is one, into the step
@@ -165,8 +207,13 @@ class Trainer:
             max_seconds: Optional[float] = None) -> Optional[int]:
         """Train until max_steps, max_seconds (0 stops at the first step
         boundary), request_stop() or a signal, or cfg.train.max_epochs.
-        Returns the final step number (None when no batch came)."""
+        Returns the final step number (None when no batch came, or on a
+        rank the mesh leaves out)."""
         cfg = self.cfg
+        if not self.mesh.active:
+            logger.warning("this rank is outside the %dx%d training mesh: not training",
+                           self.mesh.data, self.mesh.model)
+            return None
         if train_loader is None:
             if self.preload:
                 train_ds = PreloadVoiceConversionDataset(
@@ -176,7 +223,8 @@ class Trainer:
                 train_ds = VoiceConversionDataset(train_files or cfg.data.training_files,
                                                   cfg.data)
             train_loader = self._maybe_device_cache(
-                train_ds, BucketedLoader(train_ds, cfg.data, cfg.train.batch_size))
+                train_ds, BucketedLoader(train_ds, cfg.data, cfg.train.batch_size,
+                                         shard=self._shard()))
         # batches of the device batcher are on the device already
         device_cached = isinstance(train_loader, DeviceBatcher)
         self.loader_kind = ("device_cache" if device_cached
@@ -215,9 +263,11 @@ class Trainer:
                         step_no = self.resume_or_init()
                     if max_steps is not None and step_no >= max_steps:
                         return self._finish(step_no)
-                    if self._stop_reason is not None or (
-                            deadline is not None and time.monotonic() >= deadline):
-                        reason = self._stop_reason or f"time limit {max_seconds:.0f}s"
+                    late = deadline is not None and self.mesh.is_main \
+                        and time.monotonic() >= deadline
+                    if self.mesh.agree(self._stop_reason is not None or late):
+                        reason = self._stop_reason or (f"time limit {max_seconds:.0f}s" if late
+                                                       else "a stop on another rank")
                         logger.warning("graceful stop at step %d (%s): saving final checkpoint",
                                        step_no, reason)
                         return self._finish(step_no)
@@ -226,7 +276,7 @@ class Trainer:
                         batch = to_device(batch, self.device)
                     metrics = step(batch)
                     step_no += 1
-                    if step_no % cfg.train.log_interval == 0:
+                    if step_no % cfg.train.log_interval == 0 and self.mesh.is_main:
                         scalars = {k: float(v) for k, v in metrics.items()}
                         sps = cfg.train.log_interval / max(time.perf_counter() - t_log, 1e-9)
                         t_log = time.perf_counter()
@@ -242,7 +292,7 @@ class Trainer:
                         record["validate_s"] = time.perf_counter() - t1
                     if step_no % cfg.train.checkpoint_interval == 0:
                         t1 = time.perf_counter()
-                        self.ckpt.save(step_no, step.state_dict())
+                        self.save(step_no)
                         record["checkpoint_s"] = time.perf_counter() - t1
                     if step_no % _TRIM_INTERVAL == 0:
                         trim_host_memory(collect=False)
@@ -257,10 +307,13 @@ class Trainer:
                 signal.signal(sig, signal.SIG_DFL if old is None else old)
 
     def _finish(self, step_no: int) -> int:
-        self.ckpt.wait()
-        if self.ckpt.latest_step() != step_no:
-            self.ckpt.save(step_no, self.train_step.state_dict())
-        self.ckpt.wait()
+        main = self.mesh.is_main
+        if main:
+            self.ckpt.wait()
+        if self.mesh.agree(main and self.ckpt.latest_step() != step_no):
+            self.save(step_no)
+        if main:
+            self.ckpt.wait()
         self.tb.flush()
         self.tb.close()
         logger.info("training finished at step %d", step_no)
@@ -271,7 +324,8 @@ class Trainer:
         """One validation batch: infer its first clip, log the mel images
         of the generated and ground-truth clips and their audio, and the
         objective metrics (MCD, F0 RMSE, voicing F1) against the ground
-        truth. Returns the scalar metrics."""
+        truth. Returns the scalar metrics (rank 0; None on the others,
+        which take part in the sharded layers' collectives only)."""
         d = self.cfg.data
         try:
             batch = next(iter(val_loader.epoch_batches(0)))
@@ -286,6 +340,8 @@ class Trainer:
                                      generator=torch.Generator(device=self.device).manual_seed(0))
         finally:
             gen.train()
+        if not self.mesh.is_main:
+            return None
         # count in float32: a bf16 sum of more than 256 ones rounds
         n_valid = int(y_mask[0].float().sum().item()) * d.hop_length
         o = o[0, :n_valid, 0].float()

@@ -31,6 +31,13 @@ segment starts (tests inject JAX's); the rest comes from the step's
 generators. `dropout=False` runs the forward without dropout (the JAX step
 always drops out; the tests and the card-vs-CPU check turn it off on both
 sides). The metrics dict has the JAX step's keys, as 0-dim float32 tensors.
+
+Data parallelism only, as in JAX (a `Mesh` with model 1): each rank's
+batch is its rows of the global batch, every loss is the global batch's
+(the duration loss and the KL divide by the global mask sums), every
+rank draws the global batch's noise, segment starts and dropout masks
+and keeps its rows, and MAS runs per row. train/step.py's module
+docstring has the rest.
 """
 
 from __future__ import annotations
@@ -43,10 +50,11 @@ import torch
 from vcvits_tpu_torch.config import Config
 from vcvits_tpu_torch.models.synthesizer_tts import SynthesizerTTS
 from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
+from vcvits_tpu_torch.parallel.mesh import Mesh
 from vcvits_tpu_torch.train.losses import (
     discriminator_loss, feature_loss, generator_loss, kl_loss)
 from vcvits_tpu_torch.train.state import accumulate_and_step
-from vcvits_tpu_torch.train.step import GANStep, _grad_norm, _Sections, check_step_config
+from vcvits_tpu_torch.train.step import GLOBAL_METRICS, GANStep, _Sections, check_step_config
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import slice_segments
 
@@ -84,9 +92,12 @@ class TTSTrainStep(GANStep):
                  g_state: Optional[Mapping[str, torch.Tensor]] = None,
                  d_state: Optional[Mapping[str, torch.Tensor]] = None,
                  steps_per_epoch: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 n_vocab: Optional[int] = None, dropout: bool = True):
+                 n_vocab: Optional[int] = None, dropout: bool = True,
+                 mesh: Optional[Mesh] = None):
         device = resolve_device(device)
         check_step_config(cfg, dtype)
+        if mesh is not None and mesh.model > 1:
+            raise ValueError("the TTS step is data-parallel only (model 1), as in JAX")
         gen = SynthesizerTTS.from_config(cfg, dtype=dtype, device=device,
                                          seed=seed if g_state is None else None,
                                          n_vocab=n_vocab)
@@ -94,7 +105,7 @@ class TTSTrainStep(GANStep):
             gen.load_state_dict(g_state)
         self.dropout = dropout
         super().__init__(cfg, device, dtype, gen, gen.parameters(), d_state, seed,
-                         steps_per_epoch)
+                         steps_per_epoch, mesh)
 
     def _targets(self, batch: Batch):
         """(y_spec in the compute dtype, y_mel, energy target, pitch target),
@@ -123,6 +134,7 @@ class TTSTrainStep(GANStep):
         metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
                    **g_metrics, **d_metrics}
         self._advance()
+        metrics = self.mesh.sum_metrics(metrics, keep=GLOBAL_METRICS)
         return {k: v.detach() for k, v in metrics.items()}
 
     def _generator_step(self, batch: Batch, targets, draws: TTSStepDraws,
@@ -131,30 +143,41 @@ class TTSTrainStep(GANStep):
         hop = cfg.data.hop_length
         y_spec, y_mel, energy_tgt, pitch_tgt = targets
         self.disc.requires_grad_(False)
-        (o, l_length, pitch_pred, energy_pred, _, ids, _, y_mask,
-         (_, z_p, m_p, logs_p, _, logs_q)) = self.gen(
-            batch["text"], batch["text_lengths"], y_spec, batch["y_wav_lengths"] // hop,
-            batch.get("sid"), deterministic=not self.dropout, eps=draws.eps, e_q=draws.e_q,
-            ids_str=draws.ids_str, generator=self.generator,
-            dropout_generator=self.dropout_generator)
+        b, y_lengths = y_spec.shape[0], batch["y_wav_lengths"] // hop
+        # on a data mesh: this rank's rows of the global batch's draws, in
+        # the model's order (posterior, SDP, segment starts)
+        eps = self._global_noise(draws.eps, b, (y_spec.shape[1], cfg.model.inter_channels),
+                                 self.dtype)
+        e_q = self._global_noise(draws.e_q, b, (batch["text"].shape[1], 2), torch.float32)
+        ids_str = self._global_starts(draws.ids_str, y_lengths, self.gen.segment_size)
+        mask_sum = self._mask_sum if self.mesh.data > 1 else None
+        with self._dropout_rows(b):
+            (o, l_length, pitch_pred, energy_pred, _, ids, _, y_mask,
+             (_, z_p, m_p, logs_p, _, logs_q)) = self.gen(
+                batch["text"], batch["text_lengths"], y_spec, y_lengths, batch.get("sid"),
+                deterministic=not self.dropout, eps=eps, e_q=e_q, ids_str=ids_str,
+                generator=self.generator, dropout_generator=self.dropout_generator,
+                mask_sum=mask_sum)
         sections.mark("G forward (text encoder, posterior, flow, MAS, SDP, decoder)")
         y_seg = self._target_segment(batch, ids)
         (_, p_lg, p_fr, p_fg), (_, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
-        loss_p_fm = feature_loss(p_fr, p_fg) * C_P_FM
-        loss_s_fm = feature_loss(s_fr, s_fg) * C_S_FM
-        loss_p_gen, _ = generator_loss(p_lg)
-        loss_s_gen, _ = generator_loss(s_lg)
+        share = self._share
+        loss_p_fm = share(feature_loss(p_fr, p_fg)) * C_P_FM
+        loss_s_fm = share(feature_loss(s_fr, s_fg)) * C_S_FM
+        loss_p_gen = share(generator_loss(p_lg)[0])
+        loss_s_gen = share(generator_loss(s_lg)[0])
         o_mel = self._mel_of(o[:, :, 0].float())
         y_mel_slice = slice_segments(y_mel, ids, t.segment_size // hop)
-        loss_mel = torch.mean(torch.abs(o_mel - y_mel_slice)) * t.c_mel
-        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl
+        loss_mel = share(torch.mean(torch.abs(o_mel - y_mel_slice))) * t.c_mel
+        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask, mask_sum) * t.c_kl
+        # l_length is already over the global sum(x_mask): a sum of shares
         loss_dur = torch.sum(l_length.float()) * C_DUR
         n = min(pitch_tgt.shape[1], pitch_pred.shape[1])
         ym32 = y_mask.float()
-        loss_pitch = torch.mean(((pitch_pred[:, :n] - pitch_tgt[:, :n]) ** 2)
-                                * ym32[:, :n]) * C_PITCH
-        loss_energy = torch.mean(((energy_pred - energy_tgt.to(energy_pred.dtype)) ** 2)
-                                 * ym32) * C_ENERGY
+        loss_pitch = share(torch.mean(((pitch_pred[:, :n] - pitch_tgt[:, :n]) ** 2)
+                                      * ym32[:, :n])) * C_PITCH
+        loss_energy = share(torch.mean(((energy_pred - energy_tgt.to(energy_pred.dtype)) ** 2)
+                                       * ym32)) * C_ENERGY
         loss_g = ((loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_kl + loss_mel
                   + loss_dur + loss_pitch + loss_energy)
         sections.mark("G losses (MPD + MSD forward, mel, KL, duration, pitch, energy)")
@@ -162,7 +185,7 @@ class TTSTrainStep(GANStep):
         loss_g.backward()
         sections.mark("G backward")
         self.disc.requires_grad_(True)
-        grad_norm_g = _grad_norm(self.g_params)
+        grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
         sections.mark("G grad norm + AdamW")
         metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
@@ -177,14 +200,14 @@ class TTSTrainStep(GANStep):
         """The LS-GAN D update on the G step's output, detached."""
         y_seg = self._target_segment(batch, ids)
         (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg, o.detach())
-        loss_p, _, _ = discriminator_loss(p_lr, p_lg)
-        loss_s, _, _ = discriminator_loss(s_lr, s_lg)
+        loss_p = self._share(discriminator_loss(p_lr, p_lg)[0])
+        loss_s = self._share(discriminator_loss(s_lr, s_lg)[0])
         loss_d = loss_p + loss_s
         sections.mark("D forward + loss")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
         sections.mark("D backward")
-        grad_norm_d = _grad_norm(self.d_params)
+        grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, self.cfg.train.grad_clip)
         sections.mark("D grad norm + AdamW")
         return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, "loss/d/p": loss_p,

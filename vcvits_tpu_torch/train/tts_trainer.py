@@ -18,6 +18,12 @@ epoch loop starts again at epoch 0; no random state is checkpointed (every
 fit reseeds the step's generators from cfg.train.seed); the schedule's
 epoch is the config's steps_per_epoch (1000 where unset), not the
 loader's length.
+
+Under torch.distributed the trainer is data-parallel only, as JAX's
+(`training_mesh(batch_size, 1)`): each rank collates its rows of every
+global batch, the step keeps the global batch's losses, rank 0 writes
+config.json, TensorBoard, the checkpoints and the validation, and every
+rank restores.
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ import numpy as np
 import torch
 
 from vcvits_tpu_torch.config import Config
-from vcvits_tpu_torch.data.loader import prefetch, to_device
+from vcvits_tpu_torch.data.loader import prefetch, shard_rows, to_device
 from vcvits_tpu_torch.data.tts_dataset import TTSDataset, collate_tts
 from vcvits_tpu_torch.ops.stft_mel import mel_spectrogram
+from vcvits_tpu_torch.parallel.mesh import training_mesh
 from vcvits_tpu_torch.text import intersperse, text_to_sequence
 from vcvits_tpu_torch.train.checkpoint import CheckpointManager
+from vcvits_tpu_torch.train.trainer import NullLogger
 from vcvits_tpu_torch.train.tts_step import TTSTrainStep
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.logging import TensorBoardLogger, alignment_to_image, mel_to_image
@@ -50,7 +58,8 @@ class TTSTrainer:
                  audio_seconds: float = 8.0, cleaners: Sequence[str] = ("english_cleaners",),
                  add_blank: bool = False):
         """A trainer on `device` ("cuda" by default; raises when no GPU is
-        present unless device="cpu") in the compute dtype `dtype`."""
+        present unless device="cpu") in the compute dtype `dtype`; under
+        torch.distributed, one data rank of `training_mesh`."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.workdir = workdir
@@ -59,22 +68,28 @@ class TTSTrainer:
         self.audio_bucket = int(audio_seconds * cfg.data.target_sampling_rate)
         self.cleaners = tuple(cleaners)
         self.add_blank = add_blank
-        os.makedirs(workdir, exist_ok=True)
-        with open(os.path.join(workdir, "config.json"), "w") as f:
-            json.dump(cfg.to_dict(), f, indent=1)
-        self.tb = TensorBoardLogger(os.path.join(workdir, "tb"))
+        self.mesh = training_mesh(cfg.train.batch_size, 1)
+        if self.mesh.is_main:
+            os.makedirs(workdir, exist_ok=True)
+            with open(os.path.join(workdir, "config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=1)
+        self.tb = TensorBoardLogger(os.path.join(workdir, "tb")) if self.mesh.is_main \
+            else NullLogger()
         self.ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
         self.train_step = TTSTrainStep(cfg, device=self.device, seed=cfg.train.seed,
-                                       dtype=dtype)
+                                       dtype=dtype, mesh=self.mesh) if self.mesh.active \
+            else None
 
     def _batches(self, ds: TTSDataset, epoch: int):
         rng = random.Random(self.cfg.train.seed + epoch)
         order = list(range(len(ds)))
         rng.shuffle(order)
         bsz = self.cfg.train.batch_size
+        rows = shard_rows(bsz, (self.mesh.data_rank, self.mesh.data))
         for i in range(0, len(order) - bsz + 1, bsz):
             items = [ds.get_item(j) for j in order[i:i + bsz]]
-            yield collate_tts(items, self.cfg.data, self.text_bucket, self.audio_bucket, rng)
+            yield collate_tts(items, self.cfg.data, self.text_bucket, self.audio_bucket, rng,
+                              rows)
 
     def resume_or_init(self) -> int:
         """Restore the latest checkpoint, if there is one (shape-tolerant);
@@ -88,8 +103,13 @@ class TTSTrainer:
 
     def fit(self, train_files: str, max_steps: Optional[int] = None) -> Optional[int]:
         """Train until max_steps or cfg.train.max_epochs; returns the final
-        step (None when no batch came)."""
+        step (None when no batch came, or on a rank the mesh leaves out)."""
         cfg = self.cfg
+        if not self.mesh.active:
+            logger.warning("this rank is outside the %d-rank data mesh: not training",
+                           self.mesh.data)
+            return None
+        main = self.mesh.is_main
         ds = TTSDataset(train_files, cfg.data, cleaners=self.cleaners, add_blank=self.add_blank)
         step = self.train_step
         step.generator.manual_seed(cfg.train.seed)
@@ -103,26 +123,29 @@ class TTSTrainer:
                     return self._finish(step_no)
                 metrics = step(to_device(batch, self.device))
                 step_no += 1
-                if step_no % cfg.train.log_interval == 0:
+                if step_no % cfg.train.log_interval == 0 and main:
                     scalars = {k: float(v) for k, v in metrics.items()}
                     self.tb.summarize(step_no, scalars=scalars)
                     logger.info("tts step %d loss_g=%.3f loss_d=%.3f dur=%.3f", step_no,
                                 scalars["loss/g/total"], scalars["loss/d/total"],
                                 scalars["loss/g/dur"])
-                if step_no % cfg.train.eval_interval == 0 and len(ds.items) > 0:
+                if step_no % cfg.train.eval_interval == 0 and len(ds.items) > 0 and main:
                     try:
                         self.log_validation(step_no, ds.items[0][2], sid=int(ds.items[0][1]))
                     except Exception:  # noqa: BLE001 - validation must never end training
                         logger.exception("TTS validation logging failed")
-                if step_no % cfg.train.checkpoint_interval == 0:
+                if step_no % cfg.train.checkpoint_interval == 0 and main:
                     self.ckpt.save(step_no, step.state_dict())
         return self._finish(step_no) if step_no is not None else None
 
     def _finish(self, step_no: int) -> int:
-        self.ckpt.wait()
-        if self.ckpt.latest_step() != step_no:
-            self.ckpt.save(step_no, self.train_step.state_dict())
-        self.ckpt.wait()
+        if self.mesh.is_main:
+            self.ckpt.wait()
+            if self.ckpt.latest_step() != step_no:
+                self.ckpt.save(step_no, self.train_step.state_dict())
+            self.ckpt.wait()
+        # the other ranks return once rank 0's checkpoint is complete
+        self.mesh.agree(False)
         self.tb.flush()
         self.tb.close()
         logger.info("TTS training finished at step %d", step_no)

@@ -50,11 +50,17 @@ def rand_slice_segments(x: torch.Tensor, x_lengths: Optional[torch.Tensor], segm
     if ids_str is None:
         if x_lengths is None:
             x_lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
-        ids_str_max = torch.clamp_min(x_lengths.to(torch.int32) - segment_size + 1, 1)
         u = torch.rand(b, generator=generator, device=x.device)
-        ids_str = torch.floor(u * ids_str_max.to(u.dtype)).to(torch.int32)
+        ids_str = segment_starts(u, x_lengths, segment_size)
     ids_str = ids_str.to(device=x.device, dtype=torch.int32)
     return slice_segments(x, ids_str, segment_size), ids_str
+
+
+def segment_starts(u: torch.Tensor, lengths: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """floor(u * max(len - segment_size + 1, 1)), int32: the segment starts
+    of `rand_slice_segments` for its uniform draws `u` [B]."""
+    ids_str_max = torch.clamp_min(lengths.to(torch.int32) - segment_size + 1, 1)
+    return torch.floor(u * ids_str_max.to(u.dtype)).to(torch.int32)
 
 
 def generate_path(duration: torch.Tensor, y_mask: torch.Tensor, x_mask: torch.Tensor
