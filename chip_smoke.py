@@ -65,21 +65,23 @@
    fp32 and bf16, K2's reverse (4 couplings) on [16, 930, 128] with each
    row's own length drawn from 186-930; each against its plain version at
    the tolerances above, with its time, device time and bound at B = 16.
-3c. The int8 decoder's kernels (csrc/int8_conv.cu), at every distinct
-   decoder conv of a 10 s W8A8 request (conv_pre, each upsampler as its
-   phase-decomposed conv, the MRF's (k, d) convs, conv_post: 42 shapes),
-   at B = 1 and 16, fp32 and bf16 inputs, random weights from a seed: Q2's
-   row maxima (and, at B = 1, their scales and the weight scales against
-   the host's) bit-equal to the plain version, Q1 within 1 ulp of its plain
-   version (exact integer sums in float64); plan against the library's
-   int8_conv_plan; per shape and per request (78 launches each) Q1's and
-   Q2's times, Q1's bound (the larger of its bytes at 3.35 TB/s and its
-   multiply-adds at 1,979 int8 TOP/s), the plain version's time, and
-   im2col + torch._int_mm's (library_ms, a yardstick only, its integer
-   sums checked against the plain version's once); at conv_pre's input,
-   the one launch with no fused activation, Q2 beside
-   torch.linalg.vector_norm(ord=inf) (the only instance one PyTorch call
-   computes; checked equal).
+3c. The int8 decoder's kernels (csrc/int8_conv.cu), at every distinct W8A8
+   launch of a 10 s request (conv_pre with the speaker term, each upsampler
+   as its phase-decomposed conv, the MRF's c1 convs and their c2 convs with
+   the residual, the blocks' sum and mean as the decode fuses them,
+   conv_post: 66 launch forms, 78 launches), at B = 1 and 16, fp32 and bf16
+   inputs, random weights from a seed: Q1 within 1 ulp of its plain
+   version (exact integer sums in float64), every row maximum it emits
+   bit-equal to row_absmax_plain of its own output; the plan against the
+   library's int8_conv_plan; Q2 (one launch a request, on conv_pre's
+   input) bit-equal, the decode's other slots zeroed in the same launch,
+   its scales and the weight scales equal to the host's; per form and per
+   request Q1's time and bound (the larger of its bytes, the residual and
+   partial-sum reads included, at 3.35 TB/s and its multiply-adds at 1,979
+   int8 TOP/s), the plain version's time and im2col + torch._int_mm's
+   (library_ms, a yardstick only, its integer sums checked once); Q2
+   beside torch.linalg.vector_norm(ord=inf) (the same function there;
+   checked equal), 200 launches each.
 3d. M1 (monotonic_align.cu), the TTS step's MAS: at its shape, B = 16,
    text bucket 192, 750 frames (8 s), ragged lengths, and at T_x 600 (above
    the 256-thread block), B = 4, 1500 frames: the path bit-equal to the
@@ -137,11 +139,15 @@
 5e. int8 decoder modes, full widths, path A's weights (`perturbed_state`):
    the W8A8 decoder alone (45 frames, the same z and g) on the card and
    on the CPU in fp32 and bf16, SNR >= 40 dB and the count of differing
-   int8 activation codes (hooks on every conv); convert_array and
+   int8 activation codes (recorded at ops/int8_conv.py:conv1d_w8a8, every
+   conv's recording point); convert_array and
    voice_conversion_array of 10 s at noise 0 in float, W8A8 and w8, fp32
-   and bf16: exact lengths, finite, launches per request (W8A8: Q1 and Q2
-   78 each and no K1; w8: K1 36 on the int8-grid weights), ms per request
-   and the decoder's device ms, profiled; against the float decode on
+   and bf16: exact lengths, finite, launches per request (W8A8: Q1 78, Q2
+   1 and no K1; w8: K1 36 on the int8-grid weights), ms per request
+   and the decoder's device ms, profiled, and for W8A8 (convert, the flow
+   swap, a daemon batch) the device kernels that run between the first
+   and the last Q1 launch (none: the residual adds, block sums and means
+   are in Q1's epilogue); against the float decode on
    convert, W8A8 >= 24 dB from fp32 in both dtypes and w8 above W8A8
    (JAX's W8A8 gate; on these weights JAX's own decoder misses its w8 and
    mel limits, tests/int8_path_a_reference.py), the flow swap's numbers
@@ -438,6 +444,24 @@ def kernel_device_ms(fn, name: str, reps: int = 5, flush_l2: bool = False) -> fl
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA and name in e.name]
     return sum(spans) / reps / 1e3 if spans else float("nan")
+
+
+def device_time_ms(fn, reps: int = 200) -> float:
+    """Device time per call of fn, every kernel it launches summed
+    (torch.profiler over `reps` calls after a warm-up): the work on the
+    card without the host's cost per call, which CUDA events around a call
+    of a few microseconds measure instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
 
 
 def stft_report(label: str, ms: float, device_ms: float, library_ms: float, b_ms: float,
@@ -2399,29 +2423,71 @@ def out_samples(cfg, n16: int) -> int:
 
 
 def int8_conv_shapes(cfg, frames: int):
-    """Every distinct Q1 launch of a W8A8 decode of `frames` frames:
-    (name, Ci, Co' (columns), k, dilation, pad, T in, slope, launches a
-    request, multiply-adds the function needs at B = 1). An upsampler is
-    its phase-decomposed conv (Co' = stride x Co) but counts only its real
-    taps."""
+    """Every distinct Q1 launch of a W8A8 decode of `frames` frames, the
+    fused epilogue included: (name, Ci, Co' (columns), k, dilation, pad, T
+    in, slope, launches a request, multiply-adds the function needs at B =
+    1, the epilogue's parts). An upsampler is its phase-decomposed conv (Co'
+    = stride x Co) but counts only its real taps. The parts, as the decode
+    (models/hifigan.py:w8a8_forward, ops/int8_conv.py:mrf_w8a8) gives them:
+    "row" the speaker term after conv_pre, "res" a ResBlock step's
+    residual, "acc" the blocks' partial sum, "div" the mean, "emit" the row
+    maximum for the next conv (slope 0.01 before conv_post, else 0.1)."""
     from vcvits_tpu_torch.models.layers import fold_transpose_kernel
 
     m = cfg.model
     c, t = m.upsample_initial_channel, frames
-    out = [("conv_pre", m.inter_channels, c, 7, 1, (3, 3), t, None, 1,
-            t * m.inter_channels * c * 7)]
+    out = {}
+
+    def add(name, ci, co, k, d, pad, t_in, slope, macs, parts):
+        key = (name, ci, co, k, d, pad, t_in, slope, macs, parts)
+        out[key] = out.get(key, 0) + 1
+
+    add("conv_pre", m.inter_channels, c, 7, 1, (3, 3), t, None, t * m.inter_channels * c * 7,
+        ("row", "emit") if m.gin_channels > 0 else ("emit",))
+    n_blocks = len(m.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(m.upsample_rates, m.upsample_kernel_sizes)):
         co = c // 2
         wf, pad = fold_transpose_kernel(torch.zeros(c, co, k), u, (k - u) // 2)
-        out.append((f"up_{i}", c, u * co, wf.shape[2], 1, pad, t, 0.1, 1, t * c * co * k))
+        add(f"up_{i}", c, u * co, wf.shape[2], 1, pad, t, 0.1, t * c * co * k, ("emit",))
         c, t = co, t * u
-        for rk, rd in zip(m.resblock_kernel_sizes, m.resblock_dilation_sizes):
-            for d in rd:  # c1 at each dilation; the c2 convs are the d = 1 shape
-                n = 1 + (len(rd) if d == 1 else 0)
+        for j, (rk, rd) in enumerate(zip(m.resblock_kernel_sizes, m.resblock_dilation_sizes)):
+            for s, d in enumerate(rd):
                 p = (rk - 1) // 2 * d
-                out.append((f"mrf_{i} k{rk} d{d}", c, c, rk, d, (p, p), t, 0.1, n, t * c * c * rk))
-    out.append(("conv_post", c, 1, 7, 1, (3, 3), t, 0.01, 1, t * c * 7))
-    return out
+                add(f"mrf_{i} k{rk} d{d} c1", c, c, rk, d, (p, p), t, 0.1, t * c * c * rk,
+                    ("emit",))
+                if s < len(rd) - 1:
+                    parts = ("res", "emit")
+                else:
+                    parts = ("res",) + (("acc",) if j > 0 else ()) + (
+                        ("div", "emit") if j == n_blocks - 1 else ())
+                p = (rk - 1) // 2
+                add(f"mrf_{i} k{rk} c2 {'+'.join(parts)}", c, c, rk, 1, (p, p), t, 0.1,
+                    t * c * c * rk, parts)
+    add("conv_post", c, 1, 7, 1, (3, 3), t, 0.01, t * c * 7, ())
+    return [(name, ci, co, k, d, pad, t_in, slope, n, macs, parts)
+            for (name, ci, co, k, d, pad, t_in, slope, macs, parts), n in out.items()]
+
+
+def int8_fused(parts, b: int, t_out: int, co: int, n_blocks: int, last_stage: bool, dtype, gen,
+               dev) -> dict:
+    """The fused epilogue's arguments for `parts` (int8_conv_shapes), with
+    seeded random residuals and sums and a zeroed emit slot."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    kw = {}
+    if "row" in parts:
+        kw["residual"] = rnd((b, 1, co))
+    if "res" in parts:
+        kw["residual"] = rnd((b, t_out, co))
+    if "acc" in parts:
+        kw["accum"] = rnd((b, t_out, co))
+    if "div" in parts:
+        kw["divisor"] = float(n_blocks)
+    if "emit" in parts:
+        kw["emit"] = torch.zeros(b, dtype=torch.float32, device=dev)
+        kw["emit_slope"] = 0.01 if "div" in parts and last_stage else 0.1
+    return kw
 
 
 def int8_library_ms(xq: torch.Tensor, qw, pad, dilation: int) -> float:
@@ -2455,85 +2521,110 @@ def int8_library_ms(xq: torch.Tensor, qw, pad, dilation: int) -> float:
 
 
 def int8_kernel_phase(dev, _build):
-    """Q2 and Q1 against their plain versions at every distinct decoder conv
-    of a 10 s W8A8 request (configs/48k_base.json), B = 1 and the daemon's
-    16, fp32 and bf16 inputs; their times, bounds and the library's."""
+    """Q1, with the epilogue the decode gives each conv, and Q2 against their
+    plain versions at every distinct W8A8 launch of a 10 s request
+    (configs/48k_base.json), B = 1 and the daemon's 16, fp32 and bf16
+    inputs; their times, bounds and the library's."""
     from vcvits_tpu_torch.config import load_config
     from vcvits_tpu_torch.ops.int8_conv import (
-        act_scale, conv1d_w8a8_plain, kernel_plan, launch_conv, plan, prepare_w8a8,
+        act_scale, conv1d_w8a8, conv1d_w8a8_plain, kernel_plan, plan, prepare_w8a8,
         quantize_act_per_row, row_absmax, row_absmax_plain)
 
     cfg = load_config(CONFIG)
+    n_blocks, n_stages = len(cfg.model.resblock_kernel_sizes), len(cfg.model.upsample_rates)
     gen = torch.Generator(device=dev).manual_seed(8)
-    tot = {}
-    for name, ci, co, k, d, pad, t, slope, mult, macs in int8_conv_shapes(cfg, INT8_FRAMES):
-        if kernel_plan(ci, co, k, d) != plan(ci, co, k, d).smem:
-            raise AssertionError(f"int8 {name}: plan and the library's int8_conv_plan differ")
-        w = torch.randn((co, ci, k), generator=gen, device=dev) / float(np.sqrt(k * ci))
-        bias = torch.randn((co,), generator=gen, device=dev) * 0.1
-        qw = prepare_w8a8(w)
-        if not torch.equal(qw.scale.cpu(), prepare_w8a8(w.cpu()).scale):
-            raise AssertionError(f"int8 {name}: weight scales on the card differ from the host's")
+    tot, lib_cache, weights = {}, {}, {}
+    for name, ci, co, k, d, pad, t, slope, mult, macs, parts in int8_conv_shapes(cfg, INT8_FRAMES):
+        t_out = t + pad[0] + pad[1] - (k - 1) * d
+        if (ci, co, k, d) not in weights:
+            w = torch.randn((co, ci, k), generator=gen, device=dev) / float(np.sqrt(k * ci))
+            bias = torch.randn((co,), generator=gen, device=dev) * 0.1
+            qw = prepare_w8a8(w)
+            if not torch.equal(qw.scale.cpu(), prepare_w8a8(w.cpu()).scale):
+                raise AssertionError(f"int8 {name}: weight scales on the card differ from the "
+                                     f"host's")
+            weights[(ci, co, k, d)] = (qw, bias)
+        qw, bias = weights[(ci, co, k, d)]
+        last_stage = name.startswith(f"mrf_{n_stages - 1}")
         notes = []
         for b in (1, SERVE_BATCH):
             x32 = torch.randn((b, t, ci), generator=gen, device=dev)
-            lib_ms = None
             for dtype in (torch.float32, torch.bfloat16):
+                bf16 = dtype == torch.bfloat16
+                if kernel_plan(ci, co, k, d, t_out, b, bf16) != \
+                        plan(ci, co, k, d, t_out, b, bf16).kernel_fields():
+                    raise AssertionError(f"int8 {name} B={b}: plan and the library's "
+                                         f"int8_conv_plan differ")
                 x = x32.to(dtype)
                 es = x.element_size()
-                amax = row_absmax(x, slope)
-                if not torch.equal(amax, row_absmax_plain(x, slope)) or (b == 1 and not (
-                        torch.equal(act_scale(amax).cpu(),
-                                    act_scale(row_absmax_plain(x.cpu(), slope))))):
-                    raise AssertionError(f"int8 {name} B={b} {dtype}: Q2's row maxima or "
-                                         f"scales not bit-equal to the plain version's")
-                got = launch_conv(x, qw, pad, bias, d, slope, amax)
-                ref = conv1d_w8a8_plain(x, qw, pad, bias, d, slope)
+                amax = row_absmax_plain(x, slope)
+                fused = int8_fused(parts, b, t_out, co, n_blocks, last_stage, dtype, gen, dev)
+                ref_emit = None if "emit" not in parts else torch.zeros_like(fused["emit"])
+                got = conv1d_w8a8(x, qw, pad, bias, d, slope, amax=amax, **fused)
+                ref = conv1d_w8a8_plain(x, qw, pad, bias, d, slope, amax=amax,
+                                        **{**fused, "emit": ref_emit})
                 torch.cuda.synchronize()
                 u = ulps(got, ref)
                 err = float((got.float() - ref.float()).abs().max())
                 if u > INT8_ULPS or not torch.isfinite(got.float()).all():
                     raise AssertionError(f"int8 {name} B={b} {dtype}: Q1 {u} ulps from the "
                                          f"plain version (max |err| {err:.3e})")
+                if "emit" in parts and not torch.equal(
+                        fused["emit"], row_absmax_plain(got, fused["emit_slope"])):
+                    raise AssertionError(f"int8 {name} B={b} {dtype}: the emitted row maxima "
+                                         f"are not row_absmax_plain of Q1's output")
                 del got, ref
-                n0 = _build.LAUNCHES["int8_conv1d"]
-                q1 = cuda_ms(lambda: launch_conv(x, qw, pad, bias, d, slope, amax))
-                if _build.LAUNCHES["int8_conv1d"] - n0 != 4:
+                n0, m0 = _build.LAUNCHES["int8_conv1d"], _build.LAUNCHES["row_absmax"]
+                q1 = cuda_ms(lambda: conv1d_w8a8(x, qw, pad, bias, d, slope, amax=amax,
+                                                 **fused), 20)
+                if (_build.LAUNCHES["int8_conv1d"] - n0, _build.LAUNCHES["row_absmax"] - m0) \
+                        != (21, 0):
                     raise AssertionError(f"int8 {name}: Q1 launched "
-                                         f"{_build.LAUNCHES['int8_conv1d'] - n0} times in 4 calls")
-                q2 = cuda_ms(lambda: row_absmax(x, slope))
+                                         f"{_build.LAUNCHES['int8_conv1d'] - n0} times in 21 "
+                                         f"calls, Q2 {_build.LAUNCHES['row_absmax'] - m0}")
+                extra = {}
                 if slope is None:
-                    # no fused activation (conv_pre's input): one PyTorch call computes
-                    # Q2's function; a fused leaky ReLU has none
+                    # conv_pre's input, the one row maximum no Q1 makes: Q2 into a
+                    # decode's slots, against the one PyTorch call of its function
+                    slots = torch.full((8, b), float("nan"), device=dev)
+                    got_max = row_absmax(x, None, slots)
+                    if not (torch.equal(got_max, amax) and torch.equal(
+                            slots[1:], torch.zeros(7, b, device=dev))) or (b == 1 and not (
+                                torch.equal(act_scale(got_max).cpu(),
+                                            act_scale(row_absmax_plain(x.cpu()))))):
+                        raise AssertionError(f"int8 {name} B={b} {dtype}: Q2's row maxima or "
+                                             f"scales not the plain version's, or its other "
+                                             f"slots not zeroed")
+
                     def q2_lib():
                         return torch.linalg.vector_norm(x, ord=float("inf"), dim=(1, 2))
                     if not torch.equal(q2_lib().float(), amax):
                         raise AssertionError(f"int8 {name}: vector_norm(ord=inf) is not Q2's "
                                              f"row maxima")
-                    extra = {"q2_ms_conv_pre": q2, "q2_library_ms_conv_pre": cuda_ms(q2_lib)}
-                else:
-                    extra = {}
-                plain = cuda_ms(lambda: conv1d_w8a8_plain(x, qw, pad, bias, d, slope), 1) \
+                    extra = {"q2_ms": cuda_ms(lambda: row_absmax(x, None, slots), 200),
+                             "q2_library_ms": cuda_ms(q2_lib, 200),
+                             "q2_device_ms": device_time_ms(lambda: row_absmax(x, None, slots)),
+                             "q2_library_device_ms": device_time_ms(q2_lib),
+                             "q2_plain_ms": cuda_ms(lambda: row_absmax_plain(x), 3),
+                             "q2_bound_ms": bound_ms(0.0, b * t * ci * es, INT8_TOPS)[0]}
+                plain = cuda_ms(lambda: conv1d_w8a8_plain(x, qw, pad, bias, d, slope, amax=amax,
+                                                          **{**fused, "emit": ref_emit}), 1) \
                     if b == 1 else float("nan")
-                q2_plain = cuda_ms(lambda: row_absmax_plain(x, slope), 1) \
-                    if b == 1 else float("nan")
-                if lib_ms is None:
-                    lib_ms = int8_library_ms(quantize_act_per_row(x, slope)[0], qw, pad, d)
-                t_out = t + pad[0] + pad[1] - (k - 1) * d
-                q1_b, q1_by = bound_ms(2 * b * macs, b * (t * ci + t_out * co) * es
+                if (ci, co, k, d, b) not in lib_cache:
+                    lib_cache[(ci, co, k, d, b)] = int8_library_ms(
+                        quantize_act_per_row(x, slope)[0], qw, pad, d)
+                lib_ms = lib_cache[(ci, co, k, d, b)]
+                side = b * t_out * co * es * (("res" in parts) + ("acc" in parts)) \
+                    + (b * co * es if "row" in parts else 0)
+                q1_b, q1_by = bound_ms(2 * b * macs, b * (t * ci + t_out * co) * es + side
                                        + k * co * ci + 8 * co, INT8_TOPS)
-                q2_b, _ = bound_ms(0.0, b * t * ci * es, INT8_TOPS)
-                key = (b, dtype)
-                acc = tot.setdefault(key, {"q1_ms": 0.0, "q2_ms": 0.0, "plain_ms": 0.0,
-                                           "q2_plain_ms": 0.0,
-                                           "bound_ms": 0.0, "q2_bound_ms": 0.0,
-                                           "library_ms": 0.0, "max_abs_err": 0.0, "ulps": 0,
-                                           "ops_bound_ms": 0.0, "bytes_bound_ms": 0.0})
-                ops_ms = 2 * b * macs / INT8_TOPS * 1e3
-                for kk, v in (("q1_ms", q1), ("q2_ms", q2), ("plain_ms", plain),
-                              ("q2_plain_ms", q2_plain),
-                              ("bound_ms", q1_b), ("q2_bound_ms", q2_b), ("library_ms", lib_ms),
-                              ("ops_bound_ms", ops_ms),
+                acc = tot.setdefault((b, dtype), {"q1_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                                  "library_ms": 0.0, "max_abs_err": 0.0,
+                                                  "ulps": 0, "ops_bound_ms": 0.0,
+                                                  "bytes_bound_ms": 0.0})
+                for kk, v in (("q1_ms", q1), ("plain_ms", plain), ("bound_ms", q1_b),
+                              ("library_ms", lib_ms),
+                              ("ops_bound_ms", 2 * b * macs / INT8_TOPS * 1e3),
                               ("bytes_bound_ms", q1_b if q1_by == "bytes" else 0.0)):
                     acc[kk] += mult * v
                 acc.update(extra)
@@ -2541,52 +2632,85 @@ def int8_kernel_phase(dev, _build):
                                    else "operations")
                 acc["max_abs_err"] = max(acc["max_abs_err"], err)
                 acc["ulps"] = max(acc["ulps"], u)
-                notes.append(f"B={b} {str(dtype)[6:]} Q1 {q1:.4f} Q2 {q2:.4f}"
+                notes.append(f"B={b} {str(dtype)[6:]} Q1 {q1:.4f}"
                              + (f" plain {plain:.3f}" if b == 1 else "")
-                             + f" bound {q1_b:.4f} ({q1_by}) ulps {u}")
-                del x
+                             + f" bound {q1_b:.4f} ({q1_by}) share {q1_b / q1:.3f} ulps {u}"
+                             + (f" Q2 {extra['q2_ms']:.4f} (device {extra['q2_device_ms']:.4f}) "
+                                f"vector_norm {extra['q2_library_ms']:.4f} (device "
+                                f"{extra['q2_library_device_ms']:.4f})" if extra else ""))
+                del x, fused
             notes[-1] += f" library {lib_ms:.4f}"
             del x32
             torch.cuda.empty_cache()
-        print(f"int8 {name} [{ci}->{co}, k {k}, d {d}, T {t}] x{mult} a request: "
-              + "; ".join(notes))
+        print(f"int8 {name} [{ci}->{co}, k {k}, d {d}, T {t}] x{mult} a request, epilogue "
+              f"{'+'.join(parts) or 'none'}: " + "; ".join(notes))
     n = int8_convs_per_request(cfg)
     for (b, dtype), acc in tot.items():
         print(f"int8 per {'request' if b == 1 else f'batch of {b}'} x 10 s {str(dtype)[6:]} "
-              f"({n} Q1 + {n} Q2 launches): Q1 {acc['q1_ms']:.4f} ms, Q2 {acc['q2_ms']:.4f} ms, "
+              f"({n} Q1 launches + 1 Q2): Q1 {acc['q1_ms']:.4f} ms, Q2 {acc['q2_ms']:.4f} ms, "
               f"bound Q1 {acc['bound_ms']:.4f} ms (operations alone {acc['ops_bound_ms']:.4f}) "
               f"Q2 {acc['q2_bound_ms']:.4f}, bound share Q1 {acc['bound_ms'] / acc['q1_ms']:.4f}; "
               + (f"plain {acc['plain_ms']:.3f} ms (Q2's {acc['q2_plain_ms']:.3f}); "
                  if b == 1 else "")
               + f"im2col + torch._int_mm {acc['library_ms']:.4f} ms; Q2 bit-equal, Q1 max "
-              f"{acc['ulps']} ulp (max |err| {acc['max_abs_err']:.3e}); Q2 at conv_pre's "
-              f"input (no activation) {acc['q2_ms_conv_pre']:.4f} ms against "
-              f"torch.linalg.vector_norm(ord=inf) {acc['q2_library_ms_conv_pre']:.4f} ms")
+              f"{acc['ulps']} ulp (max |err| {acc['max_abs_err']:.3e}), every emitted row "
+              f"maximum bit-equal; Q2 at conv_pre's input {acc['q2_ms']:.4f} ms (device "
+              f"{acc['q2_device_ms']:.4f}) against torch.linalg.vector_norm(ord=inf) "
+              f"{acc['q2_library_ms']:.4f} ms (device {acc['q2_library_device_ms']:.4f}), 200 "
+              f"launches each")
     return tot
 
 
 def decoder_codes(dec, z, g):
-    """Run the decoder, recording every int8 conv's input codes (as its
-    quantizer makes them, on the host): (wave, [codes per conv])."""
-    from vcvits_tpu_torch.models.layers import Conv1d, ConvTranspose1d
-    from vcvits_tpu_torch.ops.int8_conv import quantize_act_per_row
+    """Run the decoder, recording every W8A8 conv's input codes as its
+    quantizer makes them (on the host, from the row maximum the conv is
+    given where the decode gives one): (wave, [codes per conv]). Every conv
+    of the decode goes through ops/int8_conv.py:conv1d_w8a8, the recording
+    point."""
+    from vcvits_tpu_torch.ops import int8_conv
 
-    codes, hooks = [], []
+    codes, conv = [], int8_conv.conv1d_w8a8
 
-    def hook(module, args, kwargs):
-        x = args[0].to(module.dtype)
-        codes.append(quantize_act_per_row(x.cpu(), kwargs.get("act_slope"))[0])
+    def record(x, qw, pad, bias=None, dilation=1, slope=None, **kw):
+        amax = kw.get("amax")
+        codes.append(int8_conv.quantize_act_per_row(
+            x.cpu(), slope, None if amax is None else amax.cpu())[0])
+        return conv(x, qw, pad, bias, dilation, slope, **kw)
 
-    for mod in dec.modules():
-        if isinstance(mod, (Conv1d, ConvTranspose1d)):
-            hooks.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
+    int8_conv.conv1d_w8a8 = record
     try:
         with torch.no_grad():
             wave = dec(z, g)[0, :, 0].float().cpu().numpy()
     finally:
-        for h in hooks:
-            h.remove()
+        int8_conv.conv1d_w8a8 = conv
     return wave, codes
+
+
+def int8_between_q1(fn, label: str, card: str) -> None:
+    """One call of fn under torch.profiler: the device kernels that run
+    between its first and last Q1 launch other than Q1 (the decode's own
+    elementwise work: none once the epilogue holds it), and Q1's and Q2's
+    launches and device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    q1 = [i for i, e in enumerate(evs) if "int8_conv_kernel" in e[2]]
+    if not q1:
+        print(f"{label}: torch.profiler recorded no Q1 launch; not measured")
+        return
+    between = [e[2] for e in evs[q1[0]:q1[-1] + 1] if "int8_conv_kernel" not in e[2]]
+    q2 = [e for e in evs if "row_absmax_kernel" in e[2]]
+    names = sorted({n[:50] for n in between})
+    q1_ms = sum(evs[i][1] - evs[i][0] for i in q1) / 1e3
+    print(f"{label}: {len(q1)} Q1 launches ({q1_ms:.3f} device ms), {len(q2)} Q2 "
+          f"({sum(e[1] - e[0] for e in q2) / 1e3:.4f} ms); kernels between the first and last "
+          f"Q1: {len(between)} {names} on {card}")
 
 
 def int8_convert_phase(dev, _build, card: str, sd):
@@ -2630,7 +2754,7 @@ def int8_convert_phase(dev, _build, card: str, sd):
 
     hop = cfg.data.hop_length
     reqs_per = {"float": {"mrf": n_mrf, "int8_conv1d": 0, "row_absmax": 0},
-                "w8a8": {"mrf": 0, "int8_conv1d": n_convs, "row_absmax": n_convs},
+                "w8a8": {"mrf": 0, "int8_conv1d": n_convs, "row_absmax": 1},
                 "w8": {"mrf": n_mrf, "int8_conv1d": 0, "row_absmax": 0}}
     counts = {"int8_conv1d": 0, "row_absmax": 0}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2675,6 +2799,18 @@ def int8_convert_phase(dev, _build, card: str, sd):
                   f"{times[(mode, dtype)]:.1f} ms per request, decoder alone {dec_ms:.3f} "
                   f"device ms on {card}")
             device_profile(fn, f"int8 {mode} {label} convert_array", card)
+            if mode == "w8a8":
+                int8_between_q1(fn, f"int8 w8a8 {label} convert_array", card)
+                vc_fn = runs["vc"]
+                vc_fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vc_fn()
+                torch.cuda.synchronize()
+                print(f"int8 w8a8 {label}: voice_conversion_array (10 s) "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms on {card}")
+                device_profile(vc_fn, f"int8 w8a8 {label} voice_conversion_array", card)
+                int8_between_q1(vc_fn, f"int8 w8a8 {label} voice_conversion_array", card)
             del vc
             torch.cuda.empty_cache()
     notes = []
@@ -2796,7 +2932,8 @@ def int8_serve_phase(dev, _build, card: str, sd):
             if errors or any(th.is_alive() for th in threads):
                 raise AssertionError(f"int8 serve {label}: client errors {errors[:3]}")
             stats, batches = daemon.stats(), list(daemon.batches)
-        expect = {k: int8_convs_per_request(cfg) * len(batches) for k in counts}
+        expect = {"int8_conv1d": int8_convs_per_request(cfg) * len(batches),
+                  "row_absmax": len(batches)}
         if rose != expect or mrf_launches:
             raise AssertionError(f"int8 serve {label}: launches {rose} (mrf {mrf_launches}) for "
                                  f"{len(batches)} batches, expected {expect}")
@@ -2823,11 +2960,13 @@ def int8_serve_phase(dev, _build, card: str, sd):
             one_batch()  # warm-up at this shape
             device_profile(one_batch, f"int8 serve W8A8 {label} one batch of {SERVE_BATCH} x 10 s",
                            card)
+            int8_between_q1(one_batch, f"int8 serve W8A8 {label} one batch of {SERVE_BATCH} x 10 s",
+                            card)
             t0 = time.perf_counter()
             one_batch()
             batch_wall = time.perf_counter() - t0
             sizes = [len(bt) for bt in daemon.batches]
-        if sizes != [SERVE_BATCH] * 3:
+        if sizes != [SERVE_BATCH] * 4:
             raise AssertionError(f"int8 serve {label}: 16 requests at once made batches {sizes}")
         # a row's z differs from its solo run's by the batched float ops'
         # rounding, and W8A8 carries a moved code on to many: a row is held
@@ -4223,35 +4362,40 @@ def main() -> int:
          "library_ms": val["library_ms"], "max_abs_err_vs_k3": max(val["vs_k3"], big["vs_k3"]),
          "ms_16x4s": big["ms"], "plain_ms_16x4s": big["plain_ms"],
          "bound_ms_16x4s": big["bound_ms"], "library_ms_16x4s": big["library_ms"]})
-    for name, key in (("int8_conv1d", "q1"), ("row_absmax", "q2")):
-        f32, b16 = int8[(1, torch.float32)], int8[(1, torch.bfloat16)]
-        big = int8[(SERVE_BATCH, torch.float32)]
-        bound = "bound_ms" if key == "q1" else "q2_bound_ms"
-        kernels.append(
-            {"name": name, "route": "cuda", "source": "vcvits_tpu_torch/csrc/int8_conv.cu",
-             "replaces": "vcvits_tpu/ops/int8_conv.py:89 (an XLA conv_general_dilated of int8 "
-                         "operands; no Pallas kernel)",
-             "launches": counts.get(name, 0), "max_abs_err": f32["max_abs_err"] if key == "q1"
-             else 0.0, "ms": f32[f"{key}_ms"],
-             "plain_ms": f32["plain_ms" if key == "q1" else "q2_plain_ms"],
-             "bound_ms": f32[bound], "bound_by": f32["bound_by"] if key == "q1" else "bytes",
-             "library_ms": f32["library_ms"] if key == "q1" else None,
-             "max_ulps": f32["ulps"] if key == "q1" else 0, "ms_bf16": b16[f"{key}_ms"],
-             **({} if key == "q1" else {
-                 "ms_conv_pre": f32["q2_ms_conv_pre"],
-                 "library_ms_conv_pre": f32["q2_library_ms_conv_pre"],
-                 "ms_conv_pre_bf16": b16["q2_ms_conv_pre"],
-                 "library_ms_conv_pre_bf16": b16["q2_library_ms_conv_pre"],
-                 "library_note": "torch.linalg.vector_norm(x, ord=inf, dim=(1, 2)) computes "
-                                 "Q2 only at conv_pre's input; the other 77 launches fuse a "
-                                 "leaky ReLU, which no one PyTorch call does"}),
-             "plain_ms_bf16": b16["plain_ms" if key == "q1" else "q2_plain_ms"],
-             "bound_ms_bf16": b16[bound],
-             "max_abs_err_bf16": b16["max_abs_err"] if key == "q1" else 0.0,
-             "ms_b16": big[f"{key}_ms"], "bound_ms_b16": big[bound],
-             "library_ms_b16": big["library_ms"] if key == "q1" else None,
-             "ms_b16_bf16": int8[(SERVE_BATCH, torch.bfloat16)][f"{key}_ms"],
-             "per": "the 78 convs of one 10 s W8A8 request, fp32 unless named"})
+    f32, b16 = int8[(1, torch.float32)], int8[(1, torch.bfloat16)]
+    big, big16 = int8[(SERVE_BATCH, torch.float32)], int8[(SERVE_BATCH, torch.bfloat16)]
+    kernels.append(
+        {"name": "int8_conv1d", "route": "cuda", "source": "vcvits_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "vcvits_tpu/ops/int8_conv.py:89 (an XLA conv_general_dilated of int8 "
+                     "operands; no Pallas kernel)",
+         "launches": counts.get("int8_conv1d", 0), "max_abs_err": f32["max_abs_err"],
+         "ms": f32["q1_ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "max_ulps": f32["ulps"],
+         "ms_bf16": b16["q1_ms"], "plain_ms_bf16": b16["plain_ms"],
+         "bound_ms_bf16": b16["bound_ms"], "max_abs_err_bf16": b16["max_abs_err"],
+         "ms_b16": big["q1_ms"], "bound_ms_b16": big["bound_ms"],
+         "library_ms_b16": big["library_ms"], "ms_b16_bf16": big16["q1_ms"],
+         "bound_ms_b16_bf16": big16["bound_ms"],
+         "per": "the 78 convs of one 10 s W8A8 request, each with the epilogue the decode gives "
+                "it (residual, block sum and mean, the next conv's row maximum), fp32 unless "
+                "named"})
+    kernels.append(
+        {"name": "row_absmax", "route": "cuda", "source": "vcvits_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "vcvits_tpu/ops/int8_conv.py:56 (quantize_act_per_row's maximum; no Pallas "
+                     "kernel)",
+         "launches": counts.get("row_absmax", 0), "max_abs_err": 0.0, "ms": f32["q2_ms"],
+         "plain_ms": f32["q2_plain_ms"], "bound_ms": f32["q2_bound_ms"], "bound_by": "bytes",
+         "library_ms": f32["q2_library_ms"], "device_ms": f32["q2_device_ms"],
+         "library_device_ms": f32["q2_library_device_ms"], "ms_bf16": b16["q2_ms"],
+         "device_ms_bf16": b16["q2_device_ms"],
+         "library_device_ms_bf16": b16["q2_library_device_ms"],
+         "device_ms_b16": big["q2_device_ms"],
+         "library_device_ms_b16": big["q2_library_device_ms"],
+         "library_ms_bf16": b16["q2_library_ms"], "bound_ms_bf16": b16["q2_bound_ms"],
+         "ms_b16": big["q2_ms"], "library_ms_b16": big["q2_library_ms"],
+         "ms_b16_bf16": big16["q2_ms"], "library_ms_b16_bf16": big16["q2_library_ms"],
+         "per": "one launch a W8A8 request, on conv_pre's input (library: "
+                "torch.linalg.vector_norm(x, ord=inf, dim=(1, 2)), the same function there)"})
     train, long = mas[MAS_SHAPES[0][0]], mas[MAS_SHAPES[1][0]]
     kernels.append(
         {"name": "monotonic_align", "route": "cuda",

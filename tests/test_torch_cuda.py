@@ -33,6 +33,11 @@ daemon batch of 4 on the card matches each request's solo conversion to
 version does in float64, and dequantizes in the same float32 order: its
 outputs are within 1 ulp of the output type; its rows' maxima (Q2) and
 the scales made on the card are the plain version's bit for bit. The
+fused epilogue (the residual, the blocks' sum and mean, the speaker term)
+holds the same 1 ulp at the decoder's convs, and the row maximum it emits
+for the next conv is row_absmax_plain of its own output bit for bit; Q2
+fills slot 0 of a decode's row maxima and zeroes the others in one
+launch, and a W8A8 decode launches Q1 once a conv and Q2 once. The
 monotonic alignment search (M1) makes the same float32 adds as its plain
 version, in the same order: its path is bit-equal, at the TTS step's
 shapes and at T_x above the block size (and with its decisions in the
@@ -639,13 +644,133 @@ def test_int8_conv_counts_launches_and_refuses(dev):
                     (30, 30), dilation=5)
     with pytest.raises(ValueError):
         kernel_plan(513, 8, 3, 1)
-    for ci, co, k, d in ((512, 4096, 3, 1), (256, 256, 11, 5), (1, 1, 1, 1), (30, 20, 7, 3)):
-        assert kernel_plan(ci, co, k, d) == plan(ci, co, k, d).smem
+    for ci, co, k, d, t, b in ((512, 4096, 3, 1, 930, 1), (256, 256, 11, 5, 7440, 16),
+                               (1, 1, 1, 1, 5, 1), (30, 20, 7, 3, 77, 2), (32, 32, 11, 5, 476160, 1),
+                               (32, 1, 7, 1, 476160, 16), (512, 2048, 3, 1, 930, 16)):
+        for bf16 in (False, True):
+            assert kernel_plan(ci, co, k, d, t, b, bf16) \
+                == plan(ci, co, k, d, t, b, bf16).kernel_fields()
     x = torch.randn(2, 100, 32, device=dev)
+    qw = prepare_w8a8(torch.randn(16, 32, 3, device=dev))
+    counted = ("int8_conv1d", "row_absmax")
     before = dict(_build.LAUNCHES)
-    conv1d_w8a8(x, prepare_w8a8(torch.randn(16, 32, 3, device=dev)), (1, 1), slope=0.1)
-    assert {n: _build.LAUNCHES[n] - before.get(n, 0) for n in ("int8_conv1d", "row_absmax")} \
+    conv1d_w8a8(x, qw, (1, 1), slope=0.1)
+    assert {n: _build.LAUNCHES[n] - before.get(n, 0) for n in counted} \
         == {"int8_conv1d": 1, "row_absmax": 1}
+    before = dict(_build.LAUNCHES)  # the row maxima given: Q1 alone
+    conv1d_w8a8(x, qw, (1, 1), slope=0.1, amax=x.abs().amax(dim=(1, 2)))
+    assert {n: _build.LAUNCHES[n] - before.get(n, 0) for n in counted} \
+        == {"int8_conv1d": 1, "row_absmax": 0}
+    with pytest.raises(ValueError):  # a residual of another type
+        conv1d_w8a8(x, qw, (1, 1), residual=torch.zeros(2, 100, 16, device=dev).bfloat16())
+    with pytest.raises(ValueError):  # an emit slot of another length
+        conv1d_w8a8(x, qw, (1, 1), emit=torch.zeros(3, device=dev))
+
+
+# The decoder's distinct W8A8 convs (48k_base) at a small T: (Ci, Co, k, dilation,
+# pad, slope, the epilogue the decode gives it)
+INT8_DECODER_CONVS = {
+    "conv_pre": (128, 512, 7, 1, (3, 3), None, "row"),
+    "up_0": (512, 2048, 3, 1, (1, 1), 0.1, "emit"),
+    "up_2": (128, 256, 1, 1, (0, 0), 0.1, "emit"),
+    "mrf_0 k11 d5 c1": (256, 256, 11, 5, (25, 25), 0.1, "emit"),
+    "mrf_1 k7 d3 c1": (128, 128, 7, 3, (9, 9), 0.1, "emit"),
+    "mrf_2 k3 c2": (64, 64, 3, 1, (1, 1), 0.1, "residual"),
+    "mrf_3 k11 c2 mean": (32, 32, 11, 1, (5, 5), 0.1, "mean"),
+    "conv_post": (32, 1, 7, 1, (3, 3), 0.01, "none"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("case", list(INT8_DECODER_CONVS))
+def test_int8_fused_conv_matches_plain(dev, case, b, dtype):
+    """Q1 with the epilogue the decode gives each conv: within 1 ulp of the
+    plain version, and the emitted row maximum bit-equal to
+    row_absmax_plain of Q1's own output (on a batch of 3, the rows zero
+    after lengths 300, 250, 120)."""
+    from vcvits_tpu_torch.ops.int8_conv import (
+        conv1d_w8a8, conv1d_w8a8_plain, prepare_w8a8, row_absmax_plain)
+
+    ci, co, k, d, pad, slope, epi = INT8_DECODER_CONVS[case]
+    rng = np.random.default_rng(13)
+    t = 300
+    x = torch.tensor(rng.standard_normal((b, t, ci)), dtype=torch.float32, device=dev)
+    for row, n in enumerate((300, 250, 120)[:b]):
+        x[row, n:] = 0.0
+    x = x.to(dtype)
+    qw = prepare_w8a8(torch.tensor(rng.standard_normal((co, ci, k)) / np.sqrt(k * ci),
+                                   dtype=torch.float32, device=dev))
+    bias = torch.tensor(rng.standard_normal(co) * 0.1, dtype=torch.float32, device=dev)
+    t_out = t + pad[0] + pad[1] - (k - 1) * d
+
+    def tensor(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(dtype)
+
+    fused = {"row": dict(residual=tensor((b, 1, co))), "emit": {}, "none": {},
+             "residual": dict(residual=tensor((b, t_out, co))),
+             "mean": dict(residual=tensor((b, t_out, co)), accum=tensor((b, t_out, co)),
+                          divisor=3.0)}[epi]
+    emit_slope = None if epi == "none" else (0.01 if epi == "mean" else 0.1)
+    amax = row_absmax_plain(x, slope)
+    emits = [None if epi == "none" else torch.zeros(b, device=dev) for _ in range(2)]
+    got = conv1d_w8a8(x, qw, pad, bias, d, slope, amax=amax, emit=emits[0],
+                      emit_slope=emit_slope, **fused)
+    ref = conv1d_w8a8_plain(x, qw, pad, bias, d, slope, amax=amax, emit=emits[1],
+                            emit_slope=emit_slope, **fused)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, t_out, co) and torch.isfinite(got.float()).all()
+    assert _ulps(got, ref) <= 1
+    if emits[0] is not None:
+        assert torch.equal(emits[0], row_absmax_plain(got, emit_slope))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 930, 192), (16, 930, 192), (3, 1001, 3), (2, 7440, 256)])
+def test_row_absmax_fills_its_slot_and_zeroes_the_rest(dev, shape, dtype):
+    """Q2 with a decode's slots, no memset before it: slot 0 bit-equal to
+    the plain version, every other slot zeroed in the same launch."""
+    from vcvits_tpu_torch.ops.int8_conv import row_absmax, row_absmax_plain
+
+    x = torch.tensor(np.random.default_rng(8).standard_normal(shape), dtype=torch.float32,
+                     device=dev).to(dtype)
+    slots = torch.full((70, shape[0]), float("nan"), device=dev)
+    before = _build.LAUNCHES["row_absmax"]
+    got = row_absmax(x, None, slots)
+    assert _build.LAUNCHES["row_absmax"] - before == 1
+    assert torch.equal(got, row_absmax_plain(x)) and torch.equal(slots[0], got)
+    assert torch.equal(slots[1:], torch.zeros(69, shape[0], device=dev))
+
+
+def test_w8a8_decode_launches_q1_a_conv_and_q2_once(dev):
+    """A W8A8 decoder of 48k_base's structure (4 stages of 3 ResBlock1 blocks
+    at dilations 1, 3, 5: 78 convs) at small widths, batch 2: Q1 78 times,
+    Q2 once, K1 never; its output is the CPU plain path's (SNR >= 40 dB)."""
+    from vcvits_tpu_torch.models.hifigan import HiFiGANGenerator
+
+    kw = dict(initial_channel=24, resblock="1", resblock_kernel_sizes=(3, 7, 11),
+              resblock_dilation_sizes=((1, 3, 5),) * 3, upsample_rates=(8, 8, 4, 2),
+              upsample_initial_channel=128, upsample_kernel_sizes=(16, 16, 4, 4),
+              gin_channels=16, quant_int8=True)
+    m = HiFiGANGenerator(**kw)
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        for prm in m.parameters():
+            prm.copy_(torch.tensor(rng.standard_normal(tuple(prm.shape)) * 0.3))
+    x = torch.tensor(rng.standard_normal((2, 20, 24)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((2, 16)), dtype=torch.float32)
+    with torch.no_grad():
+        want = m(x, g).numpy()
+        m = m.to(dev)
+        before = dict(_build.LAUNCHES)
+        got = m(x.to(dev), g.to(dev))
+        torch.cuda.synchronize()
+    rose = {n: _build.LAUNCHES[n] - before.get(n, 0) for n in ("int8_conv1d", "row_absmax", "mrf")}
+    assert rose == {"int8_conv1d": 78, "row_absmax": 1, "mrf": 0}
+    got = got.cpu().numpy()
+    err = np.mean((want.astype(np.float64) - got) ** 2)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert 10 * np.log10(np.mean(want.astype(np.float64) ** 2) / max(err, 1e-30)) >= 40.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

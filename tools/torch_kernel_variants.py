@@ -3,8 +3,8 @@
 
     python3 tools/torch_kernel_variants.py KERNEL [VARIANT ...]
 
-KERNEL is `mrf` (K1, csrc/mrf.cu) or `flow_coupling` (K2,
-csrc/flow_coupling.cu). A VARIANT is `NAME` (the source as it is for
+KERNEL is `mrf` (K1, csrc/mrf.cu), `flow_coupling` (K2,
+csrc/flow_coupling.cu) or `int8_conv` (Q1 and Q2, csrc/int8_conv.cu). A VARIANT is `NAME` (the source as it is for
 `base`, else the named edit of EDITS below), or `NAME=SPEC`, where SPEC is
 `EDIT+EDIT+-DFLAG=1...` (named edits and nvcc flags) or `@path/to/src.cu
 [nvcc flags]` for another source (say, the parent commit's, unpacked into
@@ -22,8 +22,27 @@ wrapper in vcvits_tpu_torch/ops/:
   (torch.profiler) time of 4 launches of the reverse mode on
   [1, 930, 128], the forward mode, 4 wn_segment launches (16 layers), and
   the reverse at hidden 256.
+* int8_conv: a variant named `parent` is an earlier int8_conv.cu with
+  the interface before the fused epilogue (per conv: Q2 into a zeroed
+  amax, Q1, then PyTorch's residual add, block sum and mean), given as
+  `parent=@dir/int8_conv.cu` (say the parent commit's, unpacked by
+  `git archive` into a git-ignored directory); every other variant is
+  driven through ops/int8_conv.py. Per distinct conv of a 10 s W8A8
+  request (chip_smoke.int8_conv_shapes) at B = 1 and 16, fp32 and bf16:
+  Q1's CUDA-event time (20 launches; the new interface with the epilogue
+  the decode gives the conv, the parent's Q1 alone), each variant's
+  output held to the plain version (<= 1 ulp, the emitted maximum
+  bit-equal; the parent's after PyTorch's epilogue steps) where it is
+  not an ablation; Q2 at conv_pre's input against
+  torch.linalg.vector_norm(ord=inf), 200 launches each, by CUDA events and
+  in device time (chip_smoke.device_time_ms). Then per request:
+  the whole decoder at full width (seeded random weights), the parent's
+  op sequence and the new decode in turns (parent, new, new, parent),
+  their outputs compared, and each one's device time by class
+  (torch.profiler: Q1, Q2, everything else) and kernels a request.
 
-A variant's source must keep the C entry points of the wrapper. ptxas's
+A variant's source must keep the C entry points of the wrapper (or, for
+`parent`, the earlier ones). ptxas's
 register and spill lines are printed per variant. The named edits match
 the source's text exactly and stop the run when it has moved on; those
 that drop work give wrong results and are for timing only: they show what
@@ -241,7 +260,261 @@ def flow_suite(libs, dev) -> None:
                        for k, v in res.items()), flush=True)
 
 
-SUITES = {"mrf": mrf_suite, "flow_coupling": flow_suite}
+# ---- Q1 / Q2 ---------------------------------------------------------------
+
+EDITS["int8_conv"] = {
+    # timing only: the quantizer a cast (the code is a byte of the value's bits)
+    "castquant": [("int8_conv.cu", """  for (int e = 0; e < 4; ++e) {
+    const float pc = fminf(fmaxf(__fmul_rn(v[e], rcp), -127.f), 127.f);
+    sum[e] = __fadd_rn(pc, MAGIC);
+    near = fminf(near, fabsf(fabsf(__fsub_rn(pc, __fsub_rn(sum[e], MAGIC))) - 0.5f));
+  }
+  if (near < TIE_TOL) {""", """  for (int e = 0; e < 4; ++e) sum[e] = v[e];
+  if (rcp < 0.f) {""")],
+    # timing only: the epilogue without the row maximum (no extremes kept, no atomicMax)
+    "noemit": [("int8_conv.cu", """  const bool emit_on = a.emit != nullptr, emit_slope_on""",
+                """  const bool emit_on = false, emit_slope_on""")],
+    # timing only: the input tile is not read (its codes are made from zeros)
+    "noload": [("int8_conv.cu", """          return __ldg(reinterpret_cast<const uint4*>(xb + (size_t)t * a.Ci + c));""",
+                """          return make_uint4(0u, 0u, (unsigned)t, (unsigned)c);"""),
+               ("int8_conv.cu", """    bulk_expect(&raw_bar, bytes);""", """    bulk_expect(&raw_bar, 0);"""),
+               ("int8_conv.cu", """    bulk_copy(raw + (lo - row0) * a.Ci,""",
+                """    if (bytes == 0xffffffffu) bulk_copy(raw + (lo - row0) * a.Ci,""")],
+    # timing only: no products (the accumulators stay 0)
+    "nomma": [("int8_conv.cu", """      for (int k0 = 0; k0 < p.ci_pad; k0 += 32) {
+        uint32_t af[2][4]""", """      for (int k0 = 0; k0 < 0; k0 += 32) {
+        uint32_t af[2][4]""")],
+    # timing only: nothing stored (the epilogue computes its values only)
+    "nostore": [("int8_conv.cu", """              store2(yr + o, v);""",
+                 """              if (v[0] == 1234.5f) store2(yr + o, v);"""),
+                ("int8_conv.cu", """            store4(yb + (size_t)t * a.Co""",
+                 """            if (y[0] == 1234.5f) store4(yb + (size_t)t * a.Co""")],
+    # at least three blocks an SM (at most 85 registers a thread)
+    "lb3": [("int8_conv.cu", "__launch_bounds__(32 * WM * WN, 2)", "__launch_bounds__(32 * WM * WN, 3)")],
+    # bf16 rounded on the bits with integer ops instead of the conversion unit
+    "intrnd": [("int8_conv.cu", """  return __bfloat162float(__float2bfloat16_rn(v));
+}""", """  const uint32_t u = __float_as_uint(v);
+  const float r = __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+  return v != v ? __uint_as_float(0x7fc00000u) : r;
+}""")],
+}
+
+
+def parent_lib(path):
+    """The parent interface's library: Q1 with 18 arguments, Q2 into a
+    caller-zeroed [B] of float bits."""
+    lib = ctypes.CDLL(str(path))
+    lib.int8_conv1d.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.row_absmax.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.int8_conv1d.restype = lib.row_absmax.restype = ctypes.c_int
+    return lib
+
+
+def parent_absmax(lib, x, slope):
+    b = x.shape[0]
+    amax = torch.zeros(b, dtype=torch.float32, device=x.device)
+    err = lib.row_absmax(x.data_ptr(), amax.data_ptr(), b, x.numel() // b,
+                         0.0 if slope is None else slope, slope is not None,
+                         x.dtype == torch.bfloat16, _build.current_stream(x.device))
+    _build.check(err, "parent row_absmax")
+    return amax
+
+
+def parent_q1(lib, x, qw, pad, bias, d, slope, amax):
+    b, t, _ = x.shape
+    t_out = t + pad[0] + pad[1] - (qw.k - 1) * d
+    y = torch.empty(b, t_out, qw.co, dtype=x.dtype, device=x.device)
+    err = lib.int8_conv1d(x.data_ptr(), qw.packed.data_ptr(), qw.scale.data_ptr(),
+                          None if bias is None else bias.data_ptr(), amax.data_ptr(), y.data_ptr(),
+                          b, t, qw.ci, qw.co, qw.k, d, pad[0], t_out,
+                          0.0 if slope is None else slope, slope is not None,
+                          x.dtype == torch.bfloat16, _build.current_stream(x.device))
+    _build.check(err, "parent int8_conv1d")
+    return y
+
+
+def parent_decode(lib, dec, x, g):
+    """The W8A8 decode as the parent ran it: per conv a zeroed amax, Q2 and
+    Q1, and the module path's residual adds, block sums and mean in
+    PyTorch ops (ResBlock1)."""
+    from vcvits_tpu_torch.models.layers import LRELU_SLOPE
+
+    def conv(layer, h, slope):
+        c = layer.w8a8_conv()
+        return parent_q1(lib, h, c.qw, c.pad, c.bias, c.dilation, slope,
+                         parent_absmax(lib, h, slope))
+
+    x = conv(dec.conv_pre, x.to(dec.dtype).contiguous(), None)
+    if g is not None and dec.cond is not None:
+        x = x + dec.cond(g)[:, None, :]
+    for i in range(dec.n_stages):
+        up = getattr(dec, f"up_{i}")
+        y = conv(up, x, LRELU_SLOPE)
+        x = y.reshape(y.shape[0], -1, up.w8a8_conv().qw.co // up.stride)
+        xs = None
+        for j in range(len(dec.kernel_sizes)):
+            blk, h = getattr(dec, f"res_{i}_{j}"), x
+            for t in range(len(blk.dilations)):
+                xt = conv(getattr(blk, f"c1_{t}"), h, LRELU_SLOPE)
+                h = conv(getattr(blk, f"c2_{t}"), xt, LRELU_SLOPE) + h
+            xs = h if xs is None else xs + h
+        x = xs / dec.block_count
+    return torch.tanh(conv(dec.conv_post, x, 0.01))
+
+
+def device_classes(fn, reps: int = 3):
+    """fn's device ms a call by class (Q1, Q2, the rest) and kernels a call,
+    from torch.profiler over `reps` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"q1": 0.0, "q2": 0.0, "other": 0.0, "n_q1": 0, "n_q2": 0, "n_other": 0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("q1" if "int8_conv_kernel" in e.name else
+               "q2" if "row_absmax_kernel" in e.name else "other")
+        out[key] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+        out["n_" + key] += 1
+    for key in ("n_q1", "n_q2", "n_other"):
+        out[key] /= reps
+    return out
+
+
+def int8_suite(libs, dev) -> None:
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.models.hifigan import HiFiGANGenerator
+    from vcvits_tpu_torch.models.layers import init_weights
+    from vcvits_tpu_torch.ops import int8_conv as Q
+
+    parent = {n: parent_lib(p) for n, p in libs.items() if n == "parent"}
+    cfg = load_config(cs.CONFIG)
+    m = cfg.model
+    n_blocks, n_stages = len(m.resblock_kernel_sizes), len(m.upsample_rates)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    totals = {}
+    for name_s, ci, co, k, d, pad, t, slope, mult, _, parts in cs.int8_conv_shapes(
+            cfg, cs.INT8_FRAMES):
+        t_out = t + pad[0] + pad[1] - (k - 1) * d
+        w = torch.randn((co, ci, k), generator=gen, device=dev) / float(np.sqrt(k * ci))
+        bias = torch.randn((co,), generator=gen, device=dev) * 0.1
+        qw = Q.prepare_w8a8(w)
+        line = []
+        for b in (1, cs.SERVE_BATCH):
+            x32 = torch.randn((b, t, ci), generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                amax = Q.row_absmax_plain(x, slope)
+                fused = cs.int8_fused(parts, b, t_out, co, n_blocks,
+                                      name_s.startswith(f"mrf_{n_stages - 1}"), dtype, gen, dev)
+                ref_emit = None if "emit" not in parts else torch.zeros_like(fused["emit"])
+                ref = Q.conv1d_w8a8_plain(x, qw, pad, bias, d, slope, amax=amax,
+                                          **{**fused, "emit": ref_emit})
+                for name, path in libs.items():
+                    if name in parent:  # Q1 alone; the parent ran the epilogue's steps in torch
+                        fn = lambda: parent_q1(parent[name], x, qw, pad, bias, d, slope, amax)  # noqa: E731
+                    else:
+                        use("int8_conv", path)
+                        fn = lambda: Q.conv1d_w8a8(x, qw, pad, bias, d, slope, amax=amax,  # noqa: E731
+                                                   **fused)
+                    try:
+                        if "emit" in parts:
+                            fused["emit"].zero_()
+                        got = fn()
+                        torch.cuda.synchronize()
+                        note = ""
+                        if name not in EDITS["int8_conv"] and "+" not in name:
+                            if name in parent:
+                                got = Q._epilogue_plain(got, fused.get("residual"),
+                                                        fused.get("accum"), fused.get("divisor"),
+                                                        None, None)
+                            note = f" ulps {cs.ulps(got, ref)}"
+                            if name not in parent and "emit" in parts:
+                                same = torch.equal(fused["emit"], Q.row_absmax_plain(
+                                    got, fused["emit_slope"]))
+                                note += " emit " + ("bit-equal" if same else "DIFFERS")
+                        ms = cs.cuda_ms(fn, 20)
+                    except (RuntimeError, ValueError) as exc:
+                        line.append(f"{name} B={b} {str(dtype)[6:]} failed: {exc}")
+                        continue
+                    acc = totals.setdefault((name, b, str(dtype)[6:]), [0.0, 0.0])
+                    acc[0] += mult * ms
+                    line.append(f"{name} B={b} {str(dtype)[6:]} {ms:.4f}{note}")
+                    del got
+                if slope is None:  # conv_pre's input: Q2 against the one PyTorch call
+                    lib_ms = cs.cuda_ms(lambda: torch.linalg.vector_norm(
+                        x, ord=float("inf"), dim=(1, 2)), 200)
+                    q2 = []
+                    for name, path in libs.items():
+                        if name in parent:
+                            fn = lambda: parent_absmax(parent[name], x, None)  # noqa: E731
+                        else:
+                            use("int8_conv", path)
+                            fn = lambda: Q.row_absmax(x, None)  # noqa: E731
+                        same = torch.equal(fn(), amax)
+                        q2.append(f"{name} {cs.cuda_ms(fn, 200):.4f} (device "
+                                  f"{cs.device_time_ms(fn):.4f})" + ("" if same else " DIFFERS"))
+                    line.append(f"Q2 at conv_pre B={b} {str(dtype)[6:]}: " + ", ".join(q2)
+                                + f", vector_norm(ord=inf) {lib_ms:.4f} (device "
+                                f"{cs.device_time_ms(lambda: torch.linalg.vector_norm(x, ord=float('inf'), dim=(1, 2))):.4f})")
+                del x, ref, fused
+            del x32
+            torch.cuda.empty_cache()
+        print(f"int8 {name_s} [{ci}->{co}, k {k}, d {d}, T {t}] x{mult}: " + "; ".join(line),
+              flush=True)
+    for (name, b, label), (ms, _) in totals.items():
+        print(f"int8 per-shape sum x launches, {name} B={b} {label}: Q1 {ms:.4f} ms")
+
+    # the whole decoder, per request (B = 1) and per daemon batch (B = 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        dec = init_weights(HiFiGANGenerator(
+            m.inter_channels, m.resblock, m.resblock_kernel_sizes, m.resblock_dilation_sizes,
+            m.upsample_rates, m.upsample_initial_channel, m.upsample_kernel_sizes,
+            gin_channels=m.gin_channels, quant_int8=True, dtype=dtype), 0).to(dev)
+        for b in (1, cs.SERVE_BATCH):
+            rng = torch.Generator(device=dev).manual_seed(b)
+            z = torch.randn((b, cs.INT8_FRAMES, m.inter_channels), generator=rng,
+                            device=dev).to(dtype)
+            g = torch.randn((b, m.gin_channels), generator=rng, device=dev).to(dtype)
+            runs, outs = {}, {}
+            order = [n for n in libs if n in parent] + [n for n in libs if n not in parent]
+            order = order + order[::-1]
+            with torch.no_grad():
+                for name in order:
+                    if name in parent:
+                        fn = lambda: parent_decode(parent[name], dec, z, g)  # noqa: E731
+                    else:
+                        use("int8_conv", libs[name])
+                        fn = lambda: dec(z, g)  # noqa: E731
+                    outs.setdefault(name, fn())
+                    ms = cs.cuda_ms(fn, 5)
+                    prof = device_classes(fn)
+                    runs.setdefault(name, []).append((ms, prof))
+            ref_name = order[0]
+            for name, rs in runs.items():
+                diff = (outs[name].float() - outs[ref_name].float()).abs()
+                ms = ", ".join(f"{r[0]:.3f}" for r in rs)
+                p = rs[-1][1]
+                print(f"int8 decode {str(dtype)[6:]} B={b} {name}: {ms} ms a call (CUDA events); "
+                      f"device Q1 {p['q1']:.4f} ms x{p['n_q1']:.0f}, Q2 {p['q2']:.4f} ms "
+                      f"x{p['n_q2']:.0f}, other {p['other']:.4f} ms x{p['n_other']:.0f}; Q1 + Q2 "
+                      f"{p['q1'] + p['q2']:.4f} ms; output vs {ref_name}: max |diff| "
+                      f"{float(diff.max()):.3e}, {int((diff > 0).sum())} of {diff.numel()} "
+                      f"samples differ", flush=True)
+            del z, g, outs
+        del dec
+        torch.cuda.empty_cache()
+
+
+SUITES = {"mrf": mrf_suite, "flow_coupling": flow_suite, "int8_conv": int8_suite}
 
 
 def main() -> int:
@@ -262,7 +535,7 @@ def main() -> int:
         built = list(pool.map(lambda s: build(kernel, s[0], s[2]), specs))
     libs = {}
     for name, path, rc, notes in built:
-        print(f"--- {name}: nvcc exit {rc}; " + "; ".join(notes[:8]))
+        print(f"--- {name}: nvcc exit {rc}; " + "; ".join(notes[:24]))
         if rc == 0:
             libs[name] = path
     SUITES[kernel](libs, torch.device("cuda"))

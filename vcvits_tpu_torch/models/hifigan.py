@@ -19,13 +19,18 @@ carried over.
 
 `quant_int8` is JAX's int8 decoder (inference only, same checkpoint):
 True, dynamic W8A8, runs every conv (`conv_pre`, the upsamplers, every res
-block conv, `conv_post`) through ops/int8_conv.py (kernels Q2 and Q1 on the
-card), with the leaky ReLU before each conv fused into its quantizer and
-the res blocks as modules whatever `fused_mrf` says: a conv's activation
-scale is a maximum over its whole input row, so the pairs K1 fuses cannot
-be. "w8" keeps every path and runs it on the weights' int8-grid copies in
-the compute dtype, K1 included. ResBlock2 (`resblock="2"`: per dilation
-x += c_i(lrelu(x))) runs as modules on both paths, as in JAX.
+block conv, `conv_post`) through ops/int8_conv.py (`w8a8_forward`: one Q2
+on conv_pre's input, then one Q1 a conv on the card), with the leaky ReLU
+before each conv fused into its quantizer, and the module path's residual
+adds, block sums and mean, and the speaker term, fused into the epilogue
+of the conv before each, whatever `fused_mrf` says: a conv's activation
+scale is a maximum over its whole input row, so the conv that writes the
+row also takes its maximum for the next, and the pairs K1 fuses cannot be
+fused. Its plain path (a CPU tensor) is the module path's op sequence bit
+for bit. "w8" keeps every path and runs it on the weights' int8-grid
+copies in the compute dtype, K1 included. ResBlock2 (`resblock="2"`: per
+dilation x += c_i(lrelu(x))) runs as modules in float and "w8", as in
+JAX, and through the same W8A8 driver in W8A8.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from torch import nn
 
 from vcvits_tpu_torch.models.layers import (
     LRELU_SLOPE, Conv1d, ConvTranspose1d, FoldCache, Linear, check_quant_int8)
+from vcvits_tpu_torch.ops import int8_conv
+from vcvits_tpu_torch.ops.int8_conv import W8A8Conv, mrf_w8a8_slots
 from vcvits_tpu_torch.ops.mrf import Block, mrf
 
 
@@ -163,13 +170,60 @@ class HiFiGANGenerator(FoldCache):
             [getattr(self, f"res_{i}_{j}").stacked_weights(self.dtype)
              for j in range(len(self.kernel_sizes))] for i in range(self.n_stages)])
 
+    def w8a8_blocks(self, i: int) -> List[List[Tuple[W8A8Conv, ...]]]:
+        """Stage i's blocks for ops/int8_conv.py:mrf_w8a8: per block, per
+        dilation the convs of one residual step ((c1, c2) or (c,))."""
+        names = ("c1_", "c2_") if self.resblock == "1" else ("c_",)
+        blocks = []
+        for j in range(len(self.kernel_sizes)):
+            blk = getattr(self, f"res_{i}_{j}")
+            blocks.append([tuple(getattr(blk, f"{n}{t}").w8a8_conv() for n in names)
+                           for t in range(len(blk.dilations))])
+        return blocks
+
+    def w8a8_forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The W8A8 decode: the module path's ops, with every residual add,
+        block sum, mean and the speaker term in the epilogue of the conv
+        before it, and each conv's row maximum made by the conv that wrote
+        its input (one Q2, on conv_pre's input, then one Q1 a conv on the
+        card). Every conv goes through int8_conv.conv1d_w8a8."""
+        x = x.to(self.dtype).contiguous()
+        stages = [self.w8a8_blocks(i) for i in range(self.n_stages)]
+        # row maxima: conv_pre's input and output, and a stage's upsampled
+        # input, its MRF's inner ones and its output
+        n_slots = 2 + sum(2 + mrf_w8a8_slots(b) for b in stages)
+        slots = torch.empty(n_slots, x.shape[0], dtype=torch.float32, device=x.device)
+        amax = int8_conv.row_absmax(x, None, slots)
+        free = iter(slots[1:])
+        cond = self.cond(g)[:, None, :] if g is not None and self.cond is not None else None
+        pre = self.conv_pre.w8a8_conv()
+        emit = next(free)
+        x = int8_conv.conv1d_w8a8(x, pre.qw, pre.pad, pre.bias, pre.dilation, None, amax=amax,
+                                  residual=cond, emit=emit, emit_slope=LRELU_SLOPE)
+        for i in range(self.n_stages):
+            up_layer = getattr(self, f"up_{i}")
+            up, amax, emit = up_layer.w8a8_conv(), emit, next(free)
+            x = int8_conv.conv1d_w8a8(x, up.qw, up.pad, up.bias, 1, LRELU_SLOPE, amax=amax,
+                                      emit=emit, emit_slope=LRELU_SLOPE)
+            x = x.reshape(x.shape[0], -1, up.qw.co // up_layer.stride)
+            last = i == self.n_stages - 1
+            amax, emit = emit, next(free)
+            x = int8_conv.mrf_w8a8(x, amax, stages[i], LRELU_SLOPE, free, emit,
+                                   0.01 if last else LRELU_SLOPE)
+        post = self.conv_post.w8a8_conv()
+        x = int8_conv.conv1d_w8a8(x, post.qw, post.pad, post.bias, post.dilation, 0.01,
+                                  amax=emit)
+        return torch.tanh(x)
+
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None,
                 fused_mrf: bool = True) -> torch.Tensor:
+        if self.quant_int8 is True:
+            return self.w8a8_forward(x, g)
         x = self.conv_pre(x)
         if g is not None and self.cond is not None:
             x = x + self.cond(g)[:, None, :]
         # K1 takes ResBlock1 stages in the float and "w8" modes
-        use_k1 = fused_mrf and self.resblock == "1" and self.quant_int8 is not True
+        use_k1 = fused_mrf and self.resblock == "1"
         stages = self.mrf_weights() if use_k1 else None
         n_blocks = len(self.kernel_sizes)
         for i in range(self.n_stages):

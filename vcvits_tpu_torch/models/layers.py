@@ -42,8 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vcvits_tpu_torch.ops import int8_conv
 from vcvits_tpu_torch.ops.int8_conv import (
-    conv1d_w8a8, dequantize, prepare_w8a8, quantize_weight_per_channel)
+    W8A8Conv, dequantize, prepare_w8a8, quantize_weight_per_channel)
 from vcvits_tpu_torch.parallel.tp import copy_to, gather, reduce_from, split
 
 LRELU_SLOPE = 0.1
@@ -402,12 +403,19 @@ class Conv1d(_ConvBase):
                 *quantize_weight_per_channel(self.host_kernel()), dt).to(self.device()))
         return self.kernel().to(dt)
 
+    def w8a8_conv(self) -> W8A8Conv:
+        """The W8A8 conv (quant_int8 True): the kernel folded on the host,
+        quantized and packed once (cached), with its padding, bias and
+        dilation."""
+        return W8A8Conv(self.folded(lambda: prepare_w8a8(self.host_kernel()).to(self.device())),
+                        self.pad, self.bias, self.dilation)
+
     def forward(self, x: torch.Tensor, act_slope: Optional[float] = None) -> torch.Tensor:
         dt = self.dtype
         if self.quant_int8 is True:
-            qw = self.folded(lambda: prepare_w8a8(self.host_kernel()).to(self.device()))
-            return conv1d_w8a8(x.to(dt).contiguous(), qw, self.pad, self.bias, self.dilation,
-                               act_slope)
+            c = self.w8a8_conv()
+            return int8_conv.conv1d_w8a8(x.to(dt).contiguous(), c.qw, c.pad, c.bias,
+                                         c.dilation, act_slope)
         if act_slope is not None:
             x = leaky_relu(x, act_slope)
         b = self.bias.to(dt) if self.bias is not None else None
@@ -469,12 +477,18 @@ class ConvTranspose1d(_ConvBase):
             return dequantize(*quantize_weight_per_channel(wf), dt).to(dev), pad, b
         return self.folded(build)
 
+    def w8a8_conv(self) -> W8A8Conv:
+        """The W8A8 phase-decomposed conv (quant_int8 True): its output [B,
+        T, stride * Co] is this layer's [B, T * stride, Co] after a reshape."""
+        qw, pad, b = self.phase_weights()
+        return W8A8Conv(qw, pad, b, 1)
+
     def forward(self, x: torch.Tensor, act_slope: Optional[float] = None) -> torch.Tensor:
         dt = self.dtype
         if self.quant_int8 is True:
-            qw, pad, b = self.phase_weights()
-            y = conv1d_w8a8(x.to(dt).contiguous(), qw, pad, b, 1, act_slope)
-            return y.reshape(y.shape[0], -1, qw.co // self.stride)
+            c = self.w8a8_conv()
+            y = int8_conv.conv1d_w8a8(x.to(dt).contiguous(), c.qw, c.pad, c.bias, 1, act_slope)
+            return y.reshape(y.shape[0], -1, c.qw.co // self.stride)
         if act_slope is not None:
             x = leaky_relu(x, act_slope)
         if self.quant_int8 == "w8":
