@@ -83,11 +83,15 @@
    beside torch.linalg.vector_norm(ord=inf) (the same function there;
    checked equal), 200 launches each.
 3d. M1 (monotonic_align.cu), the TTS step's MAS: at its shape, B = 16,
-   text bucket 192, 750 frames (8 s), ragged lengths, and at T_x 600 (above
-   the 256-thread block), B = 4, 1500 frames: the path bit-equal to the
-   plain version (0 differing entries), kernel ms, device ms, the plain
-   version's ms and the bound (the valid scores read once and the path
-   written once at 3.35 TB/s; no PyTorch call computes MAS).
+   text bucket 192, 750 frames (8 s), ragged lengths, at T_x 600 (several
+   DP warps), B = 4, 1500 frames, and at T_x 3000 (past the first kernel's
+   cap of 2048), B = 2, 1000 frames: one launch a call, the path bit-equal
+   to the plain version (0 differing entries), kernel ms, device ms, the
+   plain version's ms, the bound (the valid scores read once and the path
+   written once at 3.35 TB/s; no PyTorch call computes MAS) and the
+   dependency-chain floor: T_y x the cycles of one DP column step plus the
+   backtrack's, from a copy of the kernel built with -DMAS_CLOCKS (per-phase
+   clock64 counters, its cycles turned into ms at the SM clock it ran at).
 4. Slice phase (convert): VoiceConverter at the full configs/48k_base.json widths
    with seeded random weights. A 0.48 s input is converted on the card and
    with the plain path on the CPU, same weights and noise, and must agree
@@ -481,8 +485,25 @@ def info_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def build_phase(_build) -> None:
+def mas_clock_build(_build):
+    """Start nvcc of csrc/monotonic_align.cu with -DMAS_CLOCKS (M1 with
+    clock64 counters per phase) into build/torch_kernels/var/monotonic_align/
+    -> (the process, the library's path)."""
+    out = _build.BUILD_DIR / "var" / "monotonic_align" / "libclocks.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DMAS_CLOCKS", "-I", str(_build.CSRC), "-o",
+           str(out), str(_build.CSRC / "monotonic_align.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def build_phase(_build):
+    """Every kernel library (and M1's clock copy beside them, all nvcc runs
+    at once) -> the clock copy's path."""
+    clock_proc, clock_lib = mas_clock_build(_build)
     took = _build.build()
+    log, _ = clock_proc.communicate()
+    if clock_proc.returncode != 0:
+        raise RuntimeError(f"nvcc of monotonic_align.cu -DMAS_CLOCKS failed:\n{log}")
     print(f"build: {json.dumps({k: round(v, 1) for k, v in took.items()})} s")
     for name in _build.KERNEL_SOURCES:
         log = (_build.BUILD_DIR / f"{name}.log").read_text()
@@ -504,6 +525,7 @@ def build_phase(_build) -> None:
         if not any(found.values()):
             raise AssertionError(f"{name}: the library's SASS has no {' or '.join(ops)} "
                                  f"instruction")
+    return clock_lib
 
 
 def flow_weights(rng, dev, half: int, h: int):
@@ -3005,7 +3027,12 @@ TTS_SECONDS = (9.0, 11.0)  # the synthesized utterance's length, set by length_s
 TTS_NOISE, TTS_NOISE_W = 0.667, 0.8
 TTS_SHORT = "Hello world."
 MAS_SHAPES = (("train 16 x 192 x 750", 16, 192, 750),  # the TTS step's B, text bucket, frames
-              ("T_x 600 > block", 4, 600, 1500))
+              ("T_x 600", 4, 600, 1500),  # several DP warps
+              ("T_x 3000", 2, 3000, 1000))  # past the first kernel's cap of 2048
+# csrc/monotonic_align.cu's clock counters a row (MAS_CLOCKS)
+MAS_CLOCK_NAMES = ("setup", "loads waited", "handoff waits", "DP loop", "DP loop (last warp)",
+                   "barrier after DP", "cluster wait", "backtrack", "zeroing", "block 0",
+                   "columns", "block 0 ns", "start ns", "end ns")
 
 
 def perturbed_tts_state(cfg):
@@ -3172,15 +3199,57 @@ def check_kernel_inputs(seen: dict, label: str, expect, held: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def mas_phase(rng, dev, _build):
+def mas_clocks(clock_lib, value, xl, yl, shape) -> np.ndarray:
+    """One launch of M1's clock copy (not counted) on `shape` -> [B, 14]
+    counters (MAS_CLOCK_NAMES: SM cycles, the DP's columns, ns)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(clock_lib))
+    lib.monotonic_align.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.monotonic_align_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    b, t_y, _ = value.shape
+    counts = np.zeros((b, len(MAS_CLOCK_NAMES)), np.int64)
+    torch.cuda.synchronize()
+    lib.monotonic_align_clocks(counts.ctypes.data, b)  # cleared
+    path = torch.empty(b, value.shape[2], t_y, device=value.device)
+    bits = torch.empty(b, t_y, shape.words, dtype=torch.int32, device=value.device)
+    err = lib.monotonic_align(value.data_ptr(), xl.data_ptr(), yl.data_ptr(), path.data_ptr(),
+                              bits.data_ptr(), b, t_y, value.shape[2], shape.lanes_r,
+                              shape.warps, shape.stages, shape.cols, shape.cluster, shape.slots,
+                              int(shape.shared_bits), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"M1 clock copy: cudaError_t {err}")
+    torch.cuda.synchronize()
+    if lib.monotonic_align_clocks(counts.ctypes.data, b):
+        raise RuntimeError("M1 clock copy: reading the counters failed")
+    return counts
+
+
+def mas_chain(counts: np.ndarray, t_y: int) -> dict:
+    """The dependency-chain floor from a row's clock counters: T_y x the DP
+    warp's cycles a column step (its loop less the loads it waited on) plus
+    the backtrack's cycles, in cycles and ms at the SM clock the row ran at
+    (block 0's cycles over its ns)."""
+    c = dict(zip(MAS_CLOCK_NAMES, counts.tolist()))
+    step = (c["DP loop"] - c["loads waited"]) / max(c["columns"], 1)
+    floor = t_y * step + c["backtrack"]
+    ghz = c["block 0"] / max(c["block 0 ns"], 1)
+    return {"step_cycles": step, "backtrack_cycles": c["backtrack"], "floor_cycles": floor,
+            "floor_ms": floor / ghz / 1e6, "ghz": ghz, "clocks": c}
+
+
+def mas_phase(rng, dev, _build, clock_lib):
     """M1 at the TTS step's shapes (B 16, text bucket 192, 750 frames of 8 s,
-    ragged lengths) and with T_x above the 256-thread block: bit-equal to
-    the plain version on the card; kernel ms, device ms, plain ms and the
-    bytes bound."""
+    ragged lengths), with several DP warps (T_x 600) and past the first
+    kernel's T_x cap of 2048: bit-equal to the plain version on the card,
+    one launch a call; kernel ms, device ms, plain ms, the bytes bound and
+    the dependency-chain floor from the clock copy (mas_chain) with its
+    phases' cycles on the longest row."""
     from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, \
-        maximum_path_plain
+        maximum_path_plain, plan
 
     res = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, t_x, t_y in MAS_SHAPES:
         value = torch.tensor(rng.standard_normal((b, t_y, t_x)) * 30, dtype=torch.float32,
                              device=dev)
@@ -3204,13 +3273,25 @@ def mas_phase(rng, dev, _build):
             value.transpose(1, 2), length_mask(xl_t, yl_t, t_x, t_y)), 1)
         nbytes = 4 * float(np.sum(xl * yl)) + 4 * b * t_x * t_y
         b_ms, by = bound_ms(2 * float(np.sum(xl * yl)), nbytes, FP32_FLOPS)
+        shape = plan(t_x, t_y, b, sms)
+        chain = mas_chain(mas_clocks(clock_lib, value, xl_t, yl_t, shape)[-1], t_y)
         res[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": by, "differing": ndiff}
-        print(f"M1 maximum_path {label} (B={b}, T_x={t_x}, T_y={t_y}, ragged): 0 of "
-              f"{path.numel()} entries differ from the plain version; kernel_ms={ms:.4f} "
+                      "bound_by": by, "differing": ndiff, "chain_floor_ms": chain["floor_ms"],
+                      "step_cycles": chain["step_cycles"],
+                      "backtrack_cycles": chain["backtrack_cycles"]}
+        c = chain["clocks"]
+        print(f"M1 maximum_path {label} (B={b}, T_x={t_x}, T_y={t_y}, ragged; R={shape.lanes_r}, "
+              f"{shape.warps} DP warps, ring {shape.stages} x {shape.cols} columns, decisions in "
+              f"{'shared' if shape.shared_bits else 'global'} memory, {shape.cluster} blocks a "
+              f"row): 0 of {path.numel()} entries differ from the plain version; kernel_ms={ms:.4f} "
               f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({by}: "
-              f"{nbytes / 1e6:.1f} MB) bound / device {b_ms / dev_ms:.4f}; library_ms none (no "
-              f"PyTorch call computes MAS)")
+              f"{nbytes / 1e6:.1f} MB) bound / device {b_ms / dev_ms:.4f}; chain floor "
+              f"{chain['floor_ms']:.4f} ms ({chain['step_cycles']:.1f} cycles a column x {t_y} + "
+              f"backtrack {chain['backtrack_cycles']} cycles, at {chain['ghz']:.3f} GHz), floor / "
+              f"device {chain['floor_ms'] / dev_ms:.3f}; library_ms none (no PyTorch call "
+              f"computes MAS)")
+        print(f"M1 {label} clocks, the full row (cycles): " + ", ".join(
+            f"{k} {c[k]}" for k in MAS_CLOCK_NAMES))
     return res
 
 
@@ -4246,7 +4327,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build_phase(_build)
+    clock_lib = build_phase(_build)
     rng = np.random.default_rng(0)
     flow = flow_phase(rng, dev, _build)
     mrf_res = mrf_phase(rng, dev, _build)
@@ -4255,7 +4336,7 @@ def main() -> int:
     mel = mel_phase(rng, dev, _build)
     batch16 = batch_phase(rng, dev, _build)
     int8 = int8_kernel_phase(dev, _build)
-    mas = mas_phase(rng, dev, _build)
+    mas = mas_phase(rng, dev, _build, clock_lib)
     paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
         dev, _build, card)}
     sd = perturbed_state(load_config(CONFIG))
@@ -4396,7 +4477,7 @@ def main() -> int:
          "ms_b16_bf16": big16["q2_ms"], "library_ms_b16_bf16": big16["q2_library_ms"],
          "per": "one launch a W8A8 request, on conv_pre's input (library: "
                 "torch.linalg.vector_norm(x, ord=inf, dim=(1, 2)), the same function there)"})
-    train, long = mas[MAS_SHAPES[0][0]], mas[MAS_SHAPES[1][0]]
+    train, long, big = (mas[shape[0]] for shape in MAS_SHAPES)
     kernels.append(
         {"name": "monotonic_align", "route": "cuda",
          "source": "vcvits_tpu_torch/csrc/monotonic_align.cu",
@@ -4404,11 +4485,17 @@ def main() -> int:
                      "Pallas kernel)",
          "launches": counts.get("monotonic_align", 0),
          "launches_tts": tts.get("monotonic_align", 0), "max_abs_err": 0.0,
-         "differing_entries": train["differing"] + long["differing"], "ms": train["ms"],
+         "differing_entries": train["differing"] + long["differing"] + big["differing"],
+         "ms": train["ms"],
          "device_ms": train["device_ms"], "plain_ms": train["plain_ms"],
          "bound_ms": train["bound_ms"], "bound_by": train["bound_by"], "library_ms": None,
+         "chain_floor_ms": train["chain_floor_ms"], "step_cycles": train["step_cycles"],
+         "backtrack_cycles": train["backtrack_cycles"],
          "ms_tx600": long["ms"], "device_ms_tx600": long["device_ms"],
-         "plain_ms_tx600": long["plain_ms"], "bound_ms_tx600": long["bound_ms"]})
+         "plain_ms_tx600": long["plain_ms"], "bound_ms_tx600": long["bound_ms"],
+         "chain_floor_ms_tx600": long["chain_floor_ms"], "ms_tx3000": big["ms"],
+         "device_ms_tx3000": big["device_ms"], "plain_ms_tx3000": big["plain_ms"],
+         "bound_ms_tx3000": big["bound_ms"], "chain_floor_ms_tx3000": big["chain_floor_ms"]})
     for entry in kernels:
         for key, errs in (("tts", held), ("base_json", held_base)):
             if entry["name"] in errs:

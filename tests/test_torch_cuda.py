@@ -40,8 +40,10 @@ fills slot 0 of a decode's row maxima and zeroes the others in one
 launch, and a W8A8 decode launches Q1 once a conv and Q2 once. The
 monotonic alignment search (M1) makes the same float32 adds as its plain
 version, in the same order: its path is bit-equal, at the TTS step's
-shapes and at T_x above the block size (and with its decisions in the
-global scratch). TTS `infer` on the card matches the CPU's plain path at
+shapes, at T_x 1 to the limit 7168 across its warp and R boundaries, in
+every launch form (R 8 and 16, decisions in shared and global memory,
+clusters of 1-3 blocks a row), on rows with no feasible path, empty rows
+and scores summing under -1e9. TTS `infer` on the card matches the CPU's plain path at
 noise 0 to 1e-3 absolute, with equal lengths, masks and alignment. The
 train step's source smoothing repeats itself bit for bit on the card.
 """
@@ -809,28 +811,91 @@ def _mas_inputs(rng, b, t_x, t_y, dev, ties=False):
             torch.tensor(yl, device=dev))
 
 
-@pytest.mark.parametrize("b,t_x,t_y,ties", [(16, 192, 750, False), (16, 192, 750, True),
-                                            (3, 700, 1500, False), (2, 1100, 2600, False),
-                                            (4, 33, 5, False)])
-def test_maximum_path_kernel_bit_equal(dev, b, t_x, t_y, ties):
-    """The TTS step's shapes (B 16, text bucket 192, 750 frames), T_x above
-    the 256-thread block, and decisions past shared memory (2 x 1100 x
-    2600: the global scratch)."""
-    from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, \
-        maximum_path_plain
+def _mas_check(value, xl, yl, shape=None):
+    """One launch (on `shape`, default the plan's), bit-equal to the plain
+    version."""
+    from vcvits_tpu_torch.ops import monotonic_align as ma
 
-    value, xl, yl = _mas_inputs(np.random.default_rng(t_x), b, t_x, t_y, dev, ties)
+    b, t_y, t_x = value.shape
     before = _build.LAUNCHES["monotonic_align"]
-    got = maximum_path(value, xl, yl)
+    if shape is None:
+        got = ma.maximum_path(value, xl, yl)
+    else:
+        got = ma.launch(value, xl.to(torch.int32), yl.to(torch.int32), shape)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["monotonic_align"] - before == 1
-    ref = maximum_path_plain(value.transpose(1, 2), length_mask(xl, yl, t_x, t_y))
+    ref = ma.maximum_path_plain(value.transpose(1, 2), ma.length_mask(xl, yl, t_x, t_y))
     assert got.shape == (b, t_x, t_y) and got.dtype == torch.float32
     assert int((got != ref).sum()) == 0
 
 
+@pytest.mark.parametrize("b,t_x,t_y,ties", [
+    (16, 192, 750, False), (16, 192, 750, True), (3, 700, 1500, False), (2, 1100, 2600, False),
+    (4, 33, 5, False), (3, 1, 40, False), (3, 31, 60, False), (3, 32, 60, False),
+    (3, 33, 60, True), (4, 255, 300, False), (4, 256, 300, False), (4, 257, 300, True),
+    (4, 600, 1500, False), (2, 1025, 400, False), (2, 2049, 300, False), (2, 2500, 800, False),
+    (1, 7168, 200, False), (5, 192, 1, False), (80, 64, 120, False)])
+def test_maximum_path_kernel_bit_equal(dev, b, t_x, t_y, ties):
+    """The TTS step's shapes (B 16, text bucket 192, 750 frames), T_x 1,
+    31-33, one warp's 256 +- 1, several warps (600, 700, 1025), above 2048
+    up to the limit 7168, T_y 1, B = 80 (a block a row, no zeroing
+    blocks), and decisions past shared memory (2 x 1100 x 2600: the global
+    scratch)."""
+    _mas_check(*_mas_inputs(np.random.default_rng(t_x + t_y), b, t_x, t_y, dev, ties))
+
+
+@pytest.mark.parametrize("lanes_r", [8, 16])
+@pytest.mark.parametrize("shared_bits", [True, False])
+def test_maximum_path_kernel_every_launch_form(dev, lanes_r, shared_bits):
+    """Each R, decisions in shared and global memory, one-column and longer
+    chunks, clusters of 1-3, at T_x 300 (two warps at R 8), 100 (one warp)
+    and 1000 (R 16 over two warps)."""
+    from vcvits_tpu_torch.ops import monotonic_align as ma
+
+    for t_x, (stages, cols), cluster in ((300, (2, 4), 3), (100, (3, 1), 1), (300, (4, 16), 2),
+                                         (1000, (2, 8), 1)):
+        warps = -(-t_x // (32 * lanes_r))
+        slots = 1 << (stages * cols).bit_length()
+        shape = ma.Plan(lanes_r, warps, stages, cols, slots, shared_bits, cluster,
+                        ma.smem_bytes(400, lanes_r, warps, stages, cols, slots, shared_bits))
+        _mas_check(*_mas_inputs(np.random.default_rng(t_x), 5, t_x, 400, dev), shape=shape)
+
+
+def test_maximum_path_kernel_hard_rows(dev):
+    """Rows with more text than frames (no feasible path), empty rows,
+    lengths past the tensor, and scores summing under -1e9 (the backtrack's
+    x below 0 and below -T_x, JAX's gather rule)."""
+    rng = np.random.default_rng(31)
+    value = torch.tensor(rng.standard_normal((6, 90, 45)) * 30, dtype=torch.float32)
+    value[0] = -2e9
+    value[1, :, 0] = -3e9
+    value[2, :, :3] = -5e8
+    xl = torch.tensor([45, 45, 30, 45, 0, 60])
+    yl = torch.tensor([90, 80, 90, 20, 50, 200])
+    _mas_check(value.to(dev), xl.to(dev), yl.to(dev))
+    value = torch.tensor(np.round(rng.standard_normal((4, 300, 600))), dtype=torch.float32)
+    _mas_check(value.to(dev), torch.tensor([600, 599, 301, 5], device=dev),
+               torch.tensor([300, 200, 300, 300], device=dev))
+
+
+def test_maximum_path_plan_is_the_librarys(dev):
+    """plan's shared-memory bytes are the library's for every T_x step of 7
+    to the limit, and the library refuses a plan past shared memory or with
+    a warp to spare."""
+    from vcvits_tpu_torch.ops import monotonic_align as ma
+
+    for t_y in (1, 750, 2600):
+        for t_x in list(range(1, ma.MAX_T_X + 1, 7)) + [ma.MAX_T_X]:
+            p = ma.plan(t_x, t_y, 16)
+            assert ma.kernel_smem(t_y, t_x, p) == p.smem, (t_x, t_y)
+    big = ma.plan(ma.MAX_T_X, 1, 1)
+    assert ma.kernel_smem(1, ma.MAX_T_X, ma.Plan(16, 15, 2, 4, 16, False, 1, 0)) == -1
+    assert ma.kernel_smem(1, 100, ma.Plan(8, 2, 2, 4, 16, True, 1, 0)) == -1
+    assert ma.kernel_smem(1, ma.MAX_T_X, big) == big.smem
+
+
 def test_maximum_path_kernel_empty_rows_and_refusals(dev):
-    from vcvits_tpu_torch.ops.monotonic_align import length_mask, maximum_path, \
+    from vcvits_tpu_torch.ops.monotonic_align import MAX_T_X, length_mask, maximum_path, \
         maximum_path_plain
 
     value = torch.randn(3, 40, 9, device=dev)
@@ -838,7 +903,7 @@ def test_maximum_path_kernel_empty_rows_and_refusals(dev):
     ref = maximum_path_plain(value.transpose(1, 2), length_mask(xl, yl, 9, 40))
     assert torch.equal(maximum_path(value, xl, yl), ref)
     with pytest.raises(ValueError, match="T_x"):
-        maximum_path(torch.zeros(1, 10, 2049, device=dev), torch.ones(1, device=dev),
+        maximum_path(torch.zeros(1, 10, MAX_T_X + 1, device=dev), torch.ones(1, device=dev),
                      torch.ones(1, device=dev))
     with pytest.raises(ValueError, match="backward"):
         maximum_path(value.requires_grad_(), xl, yl)

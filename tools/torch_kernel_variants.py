@@ -4,7 +4,8 @@
     python3 tools/torch_kernel_variants.py KERNEL [VARIANT ...]
 
 KERNEL is `mrf` (K1, csrc/mrf.cu), `flow_coupling` (K2,
-csrc/flow_coupling.cu) or `int8_conv` (Q1 and Q2, csrc/int8_conv.cu). A VARIANT is `NAME` (the source as it is for
+csrc/flow_coupling.cu), `int8_conv` (Q1 and Q2, csrc/int8_conv.cu) or
+`monotonic_align` (M1, csrc/monotonic_align.cu). A VARIANT is `NAME` (the source as it is for
 `base`, else the named edit of EDITS below), or `NAME=SPEC`, where SPEC is
 `EDIT+EDIT+-DFLAG=1...` (named edits and nvcc flags) or `@path/to/src.cu
 [nvcc flags]` for another source (say, the parent commit's, unpacked into
@@ -40,6 +41,19 @@ wrapper in vcvits_tpu_torch/ops/:
   op sequence and the new decode in turns (parent, new, new, parent),
   their outputs compared, and each one's device time by class
   (torch.profiler: Q1, Q2, everything else) and kernels a request.
+* monotonic_align: a variant named `parent` is the first M1 (one
+  256-thread block a row, its interface `monotonic_align(..., B, T_y, T_x,
+  stream)` and `monotonic_align_shared_bits`), given as
+  `parent=@dir/monotonic_align.cu`; every other variant runs on
+  ops/monotonic_align.py's plan (`launch`). At chip_smoke.MAS_SHAPES (the
+  parent only up to its T_x cap of 2048), on the same seeded ragged
+  inputs: each variant's path against the plain version (0 differing
+  entries, except the ablations that drop work), its CUDA-event time (20
+  launches) and device time (torch.profiler), in turns (variants, then
+  the same in reverse order). Then the base library on other plans at the
+  TTS step's shape (R, ring, cluster). A variant built with -DMAS_CLOCKS
+  (say `clocks=-DMAS_CLOCKS`) prints its clock64 phase split for each
+  shape's longest row and the dependency-chain floor (chip_smoke.mas_chain).
 
 A variant's source must keep the C entry points of the wrapper (or, for
 `parent`, the earlier ones). ptxas's
@@ -514,7 +528,155 @@ def int8_suite(libs, dev) -> None:
         torch.cuda.empty_cache()
 
 
-SUITES = {"mrf": mrf_suite, "flow_coupling": flow_suite, "int8_conv": int8_suite}
+# ---- M1 --------------------------------------------------------------------
+
+EDITS["monotonic_align"] = {
+    # timing only: no path written (no zeroing blocks' stores, no 1s)
+    "nowrite": [("monotonic_align.cu", """    zero_floats(prow + lo, hi - lo);""",
+                 """    if (hi < lo) zero_floats(prow + lo, hi - lo);"""),
+                ("monotonic_align.cu",
+                 """    store_one_if(prow + (unsigned)(xx * t_y + y), lane < WINDOW && (y | xx) >= 0);""",
+                 """    store_one_if(prow + (unsigned)(xx * t_y + y), lane < WINDOW && y > t_y);""")],
+    # timing only: no backtrack (the DP, then the zeroed path)
+    "noback": [("monotonic_align.cu", """  cluster_wait();  // the zeroing blocks are done
+""", """  cluster_wait();  // the zeroing blocks are done
+  if (yl > 0) return;
+""")],
+    # the scores read by the DP warps from device memory as each column is
+    # computed (no ring between them; the copy warp still fills it)
+    "nostage": [("monotonic_align.cu", """template <int R, bool PREV>
+__device__""", """template <int R>
+__device__ __forceinline__ void load_global(float (&v)[R], const float* col, int x0, int xl) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = x0 + k < xl ? __ldg(col + x0 + k) : NEG_INF;
+}
+
+template <int R, bool PREV>
+__device__"""), ("monotonic_align.cu", """  auto column = [&](const float (&v)[R], int y) {
+""", """  auto column = [&](const float (&v_staged)[R], int y) {
+    float v[R];
+    load_global<R>(v, a.value + ((size_t)b * a.t_y + y) * a.t_x, x0, xl);
+""")],
+    # the decisions summed into two accumulators (even and odd x) instead of one
+    "twoacc": [("monotonic_align.cu", """    float bits_f = 0.f;  // the decisions as a float, sum of 2^k where x0 + k comes from diag
+""", """    float bits_f = 0.f;  // the decisions as a float, sum of 2^k where x0 + k comes from diag
+    float bits_g = 0.f;
+"""), ("monotonic_align.cu",
+       """    for (int k = R - 2; k >= 1; --k) step(best[k], best[k - 1], v[k], bits_f, (float)(1 << k));""",
+       """    for (int k = R - 2; k >= 1; --k)
+      step(best[k], best[k - 1], v[k], (k & 1) ? bits_f : bits_g, (float)(1 << k));"""),
+       ("monotonic_align.cu", """__fadd_rn(bits_f, 8388608.f)""",
+        """__fadd_rn(__fadd_rn(bits_f, bits_g), 8388608.f)""")],
+}
+MAS_EXACT_ABLATIONS = ("nostage", "twoacc")  # edits that keep the function
+
+
+def mas_parent_lib(path):
+    lib = ctypes.CDLL(str(path))
+    lib.monotonic_align.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.monotonic_align.restype = ctypes.c_int
+    lib.monotonic_align_shared_bits.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.monotonic_align_shared_bits.restype = ctypes.c_int
+    return lib
+
+
+def mas_parent(lib, value, xl, yl):
+    b, t_y, t_x = value.shape
+    where = lib.monotonic_align_shared_bits(t_y, t_x)
+    path = torch.empty(b, t_x, t_y, device=value.device)
+    bits = None if where else torch.empty(b, t_y, (t_x + 31) // 32, dtype=torch.int32,
+                                          device=value.device)
+    err = lib.monotonic_align(value.data_ptr(), xl.data_ptr(), yl.data_ptr(), path.data_ptr(),
+                              None if bits is None else bits.data_ptr(), b, t_y, t_x,
+                              _build.current_stream(value.device))
+    _build.check(err, "parent monotonic_align")
+    return path
+
+
+def mas_suite(libs, dev) -> None:
+    from vcvits_tpu_torch.ops import monotonic_align as M1
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parent = {n: mas_parent_lib(p) for n, p in libs.items() if n == "parent"}
+    rng = np.random.default_rng(0)
+    for label, b, t_x, t_y in cs.MAS_SHAPES:
+        value = torch.tensor(rng.standard_normal((b, t_y, t_x)) * 30, dtype=torch.float32,
+                             device=dev)
+        xl = rng.integers(t_x // 3, t_x + 1, b)
+        yl = np.maximum(rng.integers(t_y // 2, t_y + 1, b), xl)
+        xl[-1], yl[-1] = t_x, t_y
+        xl_t, yl_t = (torch.tensor(a, dtype=torch.int32, device=dev) for a in (xl, yl))
+        ref = M1.maximum_path_plain(value.transpose(1, 2), M1.length_mask(xl_t, yl_t, t_x, t_y))
+        shape = M1.plan(t_x, t_y, b, sms)
+        names = [n for n in libs if n not in parent or t_x <= 2048]
+        runs = {}
+        for name in names + names[::-1]:
+            if name in parent:
+                fn = lambda: mas_parent(parent[name], value, xl_t, yl_t)  # noqa: E731
+            else:
+                use("monotonic_align", libs[name])
+                fn = lambda: M1.launch(value, xl_t, yl_t, shape)  # noqa: E731
+            got = fn()
+            torch.cuda.synchronize()
+            diff = int((got != ref).sum())
+            runs.setdefault(name, []).append(
+                (cs.cuda_ms(fn, 20), cs.kernel_device_ms(fn, "mas_kernel", 10), diff))
+            del got
+        for name, rs in runs.items():
+            exact = name not in EDITS["monotonic_align"] or name in MAS_EXACT_ABLATIONS
+            print(f"M1 {label} (B={b}, T_x={t_x}, T_y={t_y}) {name}: events ms "
+                  + ", ".join(f"{r[0]:.4f}" for r in rs) + "; device ms "
+                  + ", ".join(f"{r[1]:.4f}" for r in rs)
+                  + f"; {rs[0][2]} of {ref.numel()} entries differ"
+                  + ("" if exact else " (ablation: drops work)"), flush=True)
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            if name in parent or not hasattr(lib, "monotonic_align_clocks"):
+                continue
+            counts = cs.mas_clocks(path, value, xl_t, yl_t, shape)
+            t0 = counts[:, -2].min()
+            print(f"M1 {label} {name} clocks, each row (yl, block 0 start and end us after the "
+                  f"first start, cycles DP loop, backtrack): " + "; ".join(
+                      f"{y} {(r[-2] - t0) / 1e3:.2f}-{(r[-1] - t0) / 1e3:.2f} {r[3]} {r[7]}"
+                      for y, r in zip(yl.tolist(), counts)))
+            chain = cs.mas_chain(counts[-1], t_y)
+            print(f"M1 {label} {name} clocks, the full row: " + ", ".join(
+                f"{k} {v}" for k, v in chain["clocks"].items())
+                + f"; {chain['step_cycles']:.1f} cycles a column step, backtrack "
+                f"{chain['backtrack_cycles']} cycles, chain floor {chain['floor_cycles']:.0f} "
+                f"cycles = {chain['floor_ms']:.4f} ms at {chain['ghz']:.3f} GHz", flush=True)
+        if "base" in libs:  # other launch shapes on the base library
+            use("monotonic_align", libs["base"])
+            none = torch.zeros_like(xl_t)  # every row empty: the launch and the zeroing alone
+            fn = lambda: M1.launch(value, none, yl_t, shape)  # noqa: E731
+            print(f"M1 {label} base, every row empty: events ms {cs.cuda_ms(fn, 20):.4f}, device "
+                  f"ms {cs.kernel_device_ms(fn, 'mas_kernel', 10):.4f}", flush=True)
+            alts = [M1.plan(t_x, t_y, b, sms, r) for r in (8, 16)]
+            if label == cs.MAS_SHAPES[0][0]:
+                for r, (stages, cols), cluster in ((8, (4, 16), 4), (8, (4, 32), 4), (8, (2, 32), 2),
+                                                  (8, (2, 32), 1)):
+                    warps = -(-t_x // (32 * r))
+                    slots = 1 << (stages * cols).bit_length()
+                    alts.append(M1.Plan(r, warps, stages, cols, slots, True, cluster,
+                                        M1.smem_bytes(t_y, r, warps, stages, cols, slots, True)))
+            for alt in alts:
+                if alt is None:
+                    continue
+                r, warps, stages, cols, cluster = (alt.lanes_r, alt.warps, alt.stages, alt.cols,
+                                                   alt.cluster)
+                fn = lambda: M1.launch(value, xl_t, yl_t, alt)  # noqa: E731
+                diff = int((fn() != ref).sum())
+                print(f"M1 {label} base on R={r} warps={warps} ring {stages} x {cols} "
+                      f"{'shared' if alt.shared_bits else 'global'} decisions, cluster "
+                      f"{cluster}: events ms {cs.cuda_ms(fn, 20):.4f}, device ms "
+                      f"{cs.kernel_device_ms(fn, 'mas_kernel', 10):.4f}; {diff} entries differ",
+                      flush=True)
+        del value, ref
+        torch.cuda.empty_cache()
+
+
+SUITES = {"mrf": mrf_suite, "flow_coupling": flow_suite, "int8_conv": int8_suite,
+          "monotonic_align": mas_suite}
 
 
 def main() -> int:
