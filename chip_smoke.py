@@ -283,12 +283,38 @@
    rank's peak memory; (iv) a ServingDaemon with 2 replicas against 1, 4 x
    10 s in one batch (atol 1e-5), requests/s; (v) dryrun_multigpu(2).
    Each phase prints its seconds.
+7e. remat: the VC step at path B's batch (48k_base, B = 16, segment
+   16384) under cfg.train.remat_policy "none", "dots" and "nothing", fp32
+   and bf16. In a spawned process under deterministic algorithms
+   (`_rank_device`), one step of each from the same state, held against
+   "none": bit for bit, or else the metrics within MULTI_RTOL, each
+   parameter group's gradients within `grad_limit` and the updated
+   parameters within 2 x lr; both step generators where "none" leaves
+   them. Then here, default algorithms: REMAT_STEPS steps each, ms/step
+   over the last ones, peak GiB and launches a step (K3 1, K5 64 + 32
+   under "none", 96 + 32 under the others), and K5 and K3 held to their
+   plain versions on the "dots" steps' inputs.
+7f. profiling: utils/profiling.py around train steps (48k_base, B = 4,
+   fp32): one step under `trace`, and the steps that run while a 3 s
+   `start_server` capture, asked for over HTTP from another thread,
+   records on the server's thread; each trace's size, device events and
+   the K5 and K3 kernels in it, which must be there where they launched.
+7g. convergence: tools/torch_convergence_run.py at 24 steps, B = 4, 4
+   speakers x 2 clips, validation every 8 steps, 4 steps on the grown
+   speaker table: every value finite, phase 2 logged after phase 1's end,
+   the grown phase has points, a validation point has val/mcd_db (K4).
+7h. surface: TransformerDecoder, the classic encoder, the attention's
+   options, the causal gelu ConvFFN, the timing signals and the masked KL
+   at the prior's widths, card vs CPU, max |err| <= 1e-4 (no kernel).
 8. Prints the launches of each path (serve: the first round of both
    dtypes; stream: the windowed runs) (counters set to 0 just before each
    path and read just after; the multi-GPU ranks' counts are rank 0's,
    read around its own step or call), a `kernels` JSON line (with M1, and
    each kernel's launches on the TTS paths as `launches_tts` and on the
-   new paths as `launches_base_json` and `launches_multi_gpu`), then,
+   later paths as `launches_base_json`, `launches_multi_gpu`,
+   `launches_remat`, `launches_profiling` and `launches_convergence`, and
+   K5's and K3's worst error on the remat steps' inputs as
+   `max_abs_err_remat_inputs`), then,
    last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; without a GPU it exits
@@ -4306,6 +4332,330 @@ def torchrun_phase(train_fl: str, val_fl: str, cache: str, tmp: str, card: str) 
             raise AssertionError(f"multi_gpu (i): checkpoints {done} after --max-steps {steps}")
 
 
+# ------------------------------------------------------------ slice 14 phases
+REMAT_POLICIES = ("none", "dots", "nothing")
+REMAT_STEPS = 5  # steps a policy and dtype: ms/step over steps 2-5
+
+
+def remat_config(policy: str, lr=None):
+    """48k_base with `policy` as cfg.train.remat_policy (and `lr`)."""
+    from vcvits_tpu_torch.config import Config, load_config
+
+    raw = load_config(CONFIG).to_dict()
+    raw["train"]["remat_policy"] = policy
+    if lr is not None:
+        raw["train"]["learning_rate"] = lr
+    return Config.from_dict(raw)
+
+
+def remat_rank(rank: int, n: int) -> dict:
+    """Under deterministic algorithms (`_rank_device`), one step of path B's
+    batch from the same state (perturbed seeded weights) for each remat
+    policy and dtype, each against "none": `_compare_steps` of the metrics
+    and gradients, the largest |difference| of the updated parameters, and
+    whether both generators end where "none" leaves them."""
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    dev = _rank_device(rank)
+    cfg = remat_config("none")
+    g_state = perturbed_state(cfg)
+    batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, np.random.default_rng(8), dev)
+    out = {"lr": cfg.train.learning_rate}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = None
+        for policy in REMAT_POLICIES:
+            step = TrainStep(remat_config(policy), device=dev, g_state=g_state, dtype=dtype)
+            m = {k: float(v) for k, v in step(batch).items()}
+            rec = (m, _grads(step),
+                   {f"{s}.{k}": p.detach().cpu() for s, mod in (("gen", step.gen),
+                                                                ("disc", step.disc))
+                    for k, p in mod.named_parameters()},
+                   (step.generator.get_state(), step.dropout_generator.get_state()))
+            del step
+            torch.cuda.empty_cache()
+            if ref is None:
+                ref = rec
+                continue
+            cmp = _compare_steps(rec[0], rec[1], ref[0], ref[1])
+            cmp["param_max_diff"] = max(float((rec[2][k] - v).abs().max())
+                                        for k, v in ref[2].items())
+            cmp["generators_equal"] = all(torch.equal(a, b) for a, b in zip(rec[3], ref[3]))
+            out[(policy, str(dtype)[6:])] = cmp
+    return out
+
+
+def remat_phase(dev, _build, card: str, held: dict) -> dict:
+    """The VC train step under each remat policy at path B's batch (48k_base,
+    B = 16, segment 16384), fp32 and bf16: held against "none" from the same
+    state in a spawned process under deterministic algorithms (bit for bit,
+    or else each group's gradients within `grad_limit`, the metrics within
+    MULTI_RTOL and the parameters within AdamW's first-step bound, 2 x lr);
+    then here, with the default algorithms, REMAT_STEPS steps each: ms/step,
+    peak GiB and launches a step (K3 1; K5 64 forward and 32 backward under
+    "none", 96 and 32 under the others: the generator forward's 32 gates
+    run again in the backward); K5 and K3 held to their plain versions on
+    the "dots" steps' inputs."""
+    from vcvits_tpu_torch.parallel.dryrun import launch
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    t0 = time.perf_counter()
+    rec = launch(remat_rank, 1, backend="gloo", timeout=900)[0]
+    lr = rec.pop("lr")
+    for (policy, label), cmp in rec.items():
+        exact = repeats_itself(cmp) and cmp["param_max_diff"] == 0.0
+        print(f"remat {policy} {label} against none (deterministic algorithms, one step from the "
+              f"same state): bit for bit {exact}; worst metric rel err {cmp['metric_rel']:.3e} "
+              f"({cmp['metric'] or '-'}), worst group's grad ||err|| / ||grad|| "
+              f"{cmp['groups'][cmp['worst']]['l2']:.3e} ({cmp['worst']}), updated parameters' "
+              f"max |diff| {cmp['param_max_diff']:.3e} (bound 2 x lr = {2 * lr:.1e}), "
+              f"generators where none leaves them: {cmp['generators_equal']}")
+        ok = cmp["same_grads"] and cmp["generators_equal"] and (exact or (
+            cmp["metric_rel"] <= MULTI_RTOL and not off_groups(cmp)
+            and cmp["param_max_diff"] <= 2 * lr * (1 + 1e-5)))
+        if not ok:
+            raise AssertionError(f"remat {policy} {label}: differs from none: {cmp}")
+    print(f"remat: deterministic comparison {time.perf_counter() - t0:.1f} s")
+
+    cfg = remat_config("none")
+    g_state = perturbed_state(cfg)
+    batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, np.random.default_rng(8), dev)
+    counts, runs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype)[6:]
+        step = TrainStep(cfg, device=dev, g_state=g_state, dtype=dtype)
+        for policy in REMAT_POLICIES:
+            # one step object a dtype: it reads cfg.train.remat_policy at each call
+            step.cfg = remat_config(policy)
+            # the kernels are held on the "dots" steps' inputs
+            recorder = kernel_inputs() if policy == "dots" else contextlib.nullcontext({})
+            with recorder as seen:
+                step(batch)  # the first step under this policy: allocator warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _build.LAUNCHES.clear()
+                t1 = time.perf_counter()
+                for _ in range(REMAT_STEPS - 1):
+                    metrics = step(batch)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3 / (REMAT_STEPS - 1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            per = {k: v / (REMAT_STEPS - 1) for k, v in _build.LAUNCHES.items()}
+            for k, v in _build.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v
+            gate = 96 if policy != "none" else 64
+            want = {"stft_mel": 1, "fused_gate": gate, "fused_gate_backward": 32}
+            if any(per.get(k, 0) != v for k, v in want.items()) or not all(
+                    torch.isfinite(v).all() for v in metrics.values()):
+                raise AssertionError(f"remat {policy} {label}: launches a step {per}, "
+                                     f"expected {want}, or a metric not finite")
+            runs[(policy, label)] = (ms, peak)
+            print(f"remat {policy} {label}: {ms:.1f} ms/step over steps 2-{REMAT_STEPS}, "
+                  f"peak {peak:.2f} GiB at B={cfg.train.batch_size}, launches a step {per} "
+                  f"on {card}")
+            del metrics
+            torch.cuda.empty_cache()
+            if policy == "dots":
+                check_kernel_inputs(seen, f"remat dots {label}", ("fused_gate", "stft_mel"),
+                                    held)
+        del step
+        torch.cuda.empty_cache()
+    for label in ("float32", "bfloat16"):
+        none_ms, none_gib = runs[("none", label)]
+        print(f"remat {label} against none: " + "; ".join(
+            f"{p} {runs[(p, label)][0] / none_ms:.3f}x time, "
+            f"{runs[(p, label)][1] / none_gib:.3f}x peak memory" for p in REMAT_POLICIES[1:])
+            + f" on {card}")
+    return counts
+
+
+def trace_kernels(path: str) -> tuple:
+    """(file bytes, device events, {kernel name: count}) of a Chrome trace:
+    its events of category "kernel"."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return os.path.getsize(path), sum(kernels.values()), kernels
+
+
+PROFILED_KERNELS = {"fused_gate": "gate_fwd_kernel", "fused_gate_backward": "gate_bwd_kernel",
+                    "stft_mel": "stft_mel_kernel"}
+
+
+def profiling_phase(dev, _build, card: str) -> dict:
+    """utils/profiling.py on train steps (48k_base, B = 4, fp32): one step
+    under `trace`, and the steps that run while a `start_server` capture of
+    3 s (at least two whole steps), asked for over HTTP from another
+    thread, records on the server's thread. Each trace's file size, device
+    events and the K5 and K3 kernels in it, which must be there where the
+    wrappers launched them."""
+    import threading
+    import urllib.request
+
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.train.step import TrainStep
+    from vcvits_tpu_torch.utils.profiling import start_server, trace
+
+    cfg = load_config(CONFIG)
+    batch = train_batch(cfg, 4, 2.0, 4.0, np.random.default_rng(9), dev)
+    step = TrainStep(cfg, device=dev)
+    step(batch)
+    torch.cuda.synchronize()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        captures = {}
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with trace(os.path.join(tmp, "trace")):
+            step(batch)
+            torch.cuda.synchronize()
+        captures["trace (1 step)"] = (os.path.join(tmp, "trace", "trace.json"),
+                                       dict(_build.LAUNCHES), time.perf_counter() - t0)
+        server = start_server(0, logdir=os.path.join(tmp, "server"))
+        got = {}
+
+        def ask():
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/trace?seconds=3",
+                                        timeout=300) as r:
+                got.update(json.loads(r.read()))
+
+        try:
+            client = threading.Thread(target=ask)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            client.start()
+            n = 0
+            while client.is_alive():
+                step(batch)
+                torch.cuda.synchronize()
+                n += 1
+            client.join()
+        finally:
+            server.stop()
+        captures[f"start_server capture (3 s, {n} steps on the main thread)"] = (
+            got["path"], dict(_build.LAUNCHES), time.perf_counter() - t0)
+        for label, (path, launched, seconds) in captures.items():
+            size, n_dev, kernels = trace_kernels(path)
+            found = {k: sum(c for name, c in kernels.items() if pattern in name)
+                     for k, pattern in PROFILED_KERNELS.items()}
+            print(f"profiling {label}: {size / 2 ** 20:.2f} MiB, {n_dev} device events, "
+                  f"{len(kernels)} kernel names; K5/K3 in the trace {found}, launched "
+                  f"{ {k: launched.get(k, 0) for k in PROFILED_KERNELS} } ({seconds:.1f} s) "
+                  f"on {card}")
+            missing = [k for k in PROFILED_KERNELS if launched.get(k, 0) and not found[k]]
+            if missing:
+                raise AssertionError(f"profiling {label}: {missing} launched but not in the "
+                                     f"trace")
+            for k, v in launched.items():
+                counts[k] = counts.get(k, 0) + v
+    del step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def convergence_phase(dev, _build, card: str) -> dict:
+    """tools/torch_convergence_run.py at a tiny size: 24 steps at B = 4, 4
+    speakers x 2 clips (one held out each), a log point every 4 steps, a
+    validation every 8 and 4 steps on the grown speaker table. Holds: every
+    value finite, phase 2's first logged step after phase 1's end, points
+    in the grown phase, a validation point with val/mcd_db (K4's log-mels)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_convergence_run", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools", "torch_convergence_run.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.LAUNCHES.clear()
+        report = tool.main(["--steps", "24", "--batch", "4", "--speakers", "4", "--clips", "2",
+                            "--eval-interval", "8", "--log-interval", "4", "--grown-steps", "4",
+                            "--root", os.path.join(tmp, "root"),
+                            "--out", os.path.join(tmp, "report.json")])
+        counts = dict(_build.LAUNCHES)
+    resume, grown = report["resume"], report["grown_speakers"]
+    vals = [p for p in report["val_trajectory"] if "val/mcd_db" in p]
+    print(f"convergence (24 steps, B=4): {len(report['trajectory'])} log points, mel "
+          f"{report['mel_early_mean']:.3f} -> {report['mel_late_mean']:.3f}, phase 1 ends at "
+          f"{resume['phase1_end']}, phase 2's first logged step {resume['phase2_first_logged']}, "
+          f"grown table {grown['n_speakers']} speakers with {len(grown['points'])} points "
+          f"(finite {grown['finite']}), validation MCD "
+          f"{[round(p['val/mcd_db'], 3) for p in vals]} dB, all finite {report['all_finite']}, "
+          f"preprocess {report['preprocess_s']} s; launches {counts} on {card}")
+    if not (report["all_finite"] and grown["finite"] and grown["points"] and vals
+            and resume["phase2_first_logged"] is not None
+            and resume["phase2_first_logged"] > resume["phase1_end"]
+            and all(np.isfinite(p["val/mcd_db"]) for p in vals)
+            and counts.get("mel_spectrogram", 0) > 0):
+        raise AssertionError(f"convergence: the tiny run is off: "
+                             f"{ {k: v for k, v in report.items() if 'trajectory' not in k} }")
+    return counts
+
+
+SURFACE_TOL = 1e-4  # the unreached modules, card vs CPU, fp32, max |err|
+
+
+def surface_phase(dev, card: str) -> None:
+    """The modules no path reaches, at the prior encoder's widths (hidden 192,
+    filter 768, 2 heads), B = 2, T = 200 (150 and 120 valid), seeded
+    weights, fp32: TransformerDecoder, ClassicTransformerEncoder (all layers
+    and output_layer 2), the attention's options, the causal and gelu
+    ConvFFN, the timing signals, subsequent_mask and kl_divergence, each on
+    the card against its CPU result (max |err| <= SURFACE_TOL)."""
+    from vcvits_tpu_torch.models import attention as ta
+    from vcvits_tpu_torch.models.classic_transformer import ClassicTransformerEncoder
+    from vcvits_tpu_torch.models.layers import init_weights
+    from vcvits_tpu_torch.utils import masking as tm
+
+    g = torch.Generator().manual_seed(14)
+    b, t, c = 2, 200, 192
+    x, h = torch.randn(b, t, c, generator=g), torch.randn(b, 160, c, generator=g)
+    x_mask = (torch.arange(t)[None, :] < torch.tensor([t, 150])[:, None]).float()[..., None]
+    h_mask = (torch.arange(160)[None, :] < torch.tensor([160, 120])[:, None]).float()[..., None]
+    attn_mask = x_mask[..., 0][:, None, :, None] * x_mask[..., 0][:, None, None, :]
+    cross_mask = x_mask[..., 0][:, None, :, None] * h_mask[..., 0][:, None, None, :]
+    cases = {
+        "TransformerDecoder": (ta.TransformerDecoder(c, 768, 2, 2, kernel_size=3),
+                               lambda m, x, xm, h, hm: m(x, xm, h, hm), (x, x_mask, h, h_mask)),
+        "ClassicTransformerEncoder": (ClassicTransformerEncoder(c, 768, 2, 3),
+                                      lambda m, x, xm: m(x, xm), (x, x_mask)),
+        "ClassicTransformerEncoder output_layer 2": (
+            ClassicTransformerEncoder(c, 768, 2, 3),
+            lambda m, x, xm: m(x, xm, output_layer=2), (x, x_mask)),
+        "attention heads_share=False, proximal_bias": (
+            ta.RelativeMultiHeadAttention(c, c, 2, heads_share=False, proximal_bias=True),
+            lambda m, x, am: m(x, am), (x, attn_mask)),
+        "attention cross, window None": (
+            ta.RelativeMultiHeadAttention(c, c, 2, None),
+            lambda m, x, am, h: m(x, am, c=h), (x, cross_mask, h)),
+        "ConvFFN causal gelu": (ta.ConvFFN(c, c, 768, 3, activation="gelu", causal=True),
+                                lambda m, x, xm: m(x, xm), (x, x_mask)),
+        "timing signals": (None, lambda _, x: torch.cat(
+            [tm.add_timing_signal_1d(x), tm.cat_timing_signal_1d(x)], -1), (x,)),
+        "kl_divergence under subsequent_mask": (None, lambda _, x: tm.kl_divergence(
+            x[..., :64], x[..., 64:128] * 0.3, x.flip(1)[..., :64], x[..., 128:] * 0.3)
+            * tm.subsequent_mask(t).to(x)[0, 0, :, :64], (x,)),
+    }
+    worst = 0.0
+    for i, (name, (module, fn, args)) in enumerate(cases.items()):
+        if module is not None:
+            init_weights(module, i)
+            module.eval()
+        with torch.no_grad():
+            ref = fn(module, *args)
+            if module is not None:
+                module.to(dev)
+            got = fn(module, *(a.to(dev) for a in args)).cpu()
+        err = (got - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"surface {name}: {tuple(ref.shape)} card vs CPU max |err| {err:.3e} (limit "
+              f"{SURFACE_TOL})")
+        if not (err <= SURFACE_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"surface {name}: the card's result is {err:.3e} from the CPU's")
+    print(f"surface: largest max |err| {worst:.3e} on {card}")
+
+
 def batch_keys(res, suffix: str = "") -> dict:
     """A kernel's figures at the daemon's batch of 16 for the kernels line."""
     return {f"{k}_b16{suffix}": res[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -4362,7 +4712,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     paths["multi_gpu"] = multi_gpu_phase(dev, _build, card)
     print(f"phase multi_gpu: {time.perf_counter() - t_phase:.1f} s")
-    counts, tts, new = {}, {}, {"base_json": {}, "multi_gpu": {}}
+    t_phase = time.perf_counter()
+    held_remat = {}  # each kernel's worst max |err| on the remat steps' inputs
+    paths["remat"] = remat_phase(dev, _build, card, held_remat)
+    print(f"phase remat: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["profiling"] = profiling_phase(dev, _build, card)
+    print(f"phase profiling: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["convergence"] = convergence_phase(dev, _build, card)
+    print(f"phase convergence: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    surface_phase(dev, card)
+    print(f"phase surface: {time.perf_counter() - t_phase:.1f} s")
+    counts, tts, new = {}, {}, {"base_json": {}, "multi_gpu": {}, "remat": {}, "profiling": {},
+                                "convergence": {}}
     for path, path_counts in paths.items():
         for k, v in path_counts.items():
             counts[k] = counts.get(k, 0) + v
@@ -4497,7 +4861,7 @@ def main() -> int:
          "device_ms_tx3000": big["device_ms"], "plain_ms_tx3000": big["plain_ms"],
          "bound_ms_tx3000": big["bound_ms"], "chain_floor_ms_tx3000": big["chain_floor_ms"]})
     for entry in kernels:
-        for key, errs in (("tts", held), ("base_json", held_base)):
+        for key, errs in (("tts", held), ("base_json", held_base), ("remat", held_remat)):
             if entry["name"] in errs:
                 entry[f"max_abs_err_{key}_inputs"] = errs[entry["name"]]
         for path, path_counts in new.items():

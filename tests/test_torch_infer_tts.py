@@ -200,6 +200,15 @@ def test_fit_logs_validates_and_checkpoints(loop):
     assert saved["step"] == 2 and set(saved) >= {"gen", "disc", "g_opt", "d_opt"}
 
 
+def test_fit_logs_steps_per_sec(loop):
+    """steps/s from a StepTimer beside the other scalars at each log
+    interval, once the timer has two ticks (JAX's tts_trainer.py)."""
+    trainer, resumed = loop[3], loop[6]
+    for tr, steps in ((trainer, [2]), (resumed, [4])):
+        sps = [c for c in tr.tb._writer.calls if c[0] == "scalar" and c[1] == "steps_per_sec"]
+        assert [c[2] for c in sps] == steps and all(c[3] > 0 for c in sps)
+
+
 def test_resume_restores_and_continues(loop):
     """The resumed trainer starts from the saved tensors, and a validation
     that raises (at step 4) is logged while training goes on."""

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's package boundary and device rules.
 
-* No module under vcvits_tpu_torch/, and not chip_smoke.py, imports jax,
-  flax, optax, orbax or vcvits_tpu.
+* No module under vcvits_tpu_torch/, and not chip_smoke.py or
+  tools/torch_convergence_run.py, imports jax, flax, optax, orbax or
+  vcvits_tpu.
 * Importing the package, its trainer, data pipeline, metrics, serving and
   streaming modules, converters, the int8 conv, the TTS path (text front
   end, models, MAS, synthesis, train step, trainer, dataset) and CLIs
@@ -57,7 +58,8 @@ def _imports(path):
 
 
 def test_no_jax_imports_in_port():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "torch_convergence_run.py")]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     bad = [f"{os.path.relpath(path, ROOT)}: {mod}" for path in paths for mod in _imports(path)
@@ -82,7 +84,8 @@ def test_import_loads_no_jax():
             "vcvits_tpu_torch.ops.monotonic_align, vcvits_tpu_torch.infer_tts, "
             "vcvits_tpu_torch.train.tts_step, vcvits_tpu_torch.train.tts_trainer, "
             "vcvits_tpu_torch.data.tts_dataset, vcvits_tpu_torch.cli.infer_tts, "
-            "vcvits_tpu_torch.cli.train_tts; "
+            "vcvits_tpu_torch.cli.train_tts, vcvits_tpu_torch.models.classic_transformer, "
+            "vcvits_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vcvits_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

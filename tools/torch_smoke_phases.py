@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Some of chip_smoke.py's slice-11 phases alone, for iterating on them.
+"""Some of chip_smoke.py's later phases alone, for iterating on them.
 
     python3 tools/torch_smoke_phases.py base_json,multi_gpu,torchrun
+    python3 tools/torch_smoke_phases.py remat,profiling,convergence,surface
 
 Builds the kernels, then runs the named phases (any of base_json,
-multi_gpu, torchrun) with chip_smoke.py's own functions, each with its
-seconds. base_json prints each kernel's max |err| on the path's inputs.
+multi_gpu, torchrun, remat, profiling, convergence, surface) with
+chip_smoke.py's own functions, each with its seconds. base_json and remat
+print each kernel's max |err| on the path's inputs.
 It prints no kernels line and no result line: chip_smoke.py stays the one
 end-to-end check. Exits non-zero without a GPU.
 """
@@ -47,6 +49,16 @@ def main() -> int:
             print(f"base_json: each kernel's max |err| on the path's inputs {held}")
         elif name == "multi_gpu":
             chip_smoke.multi_gpu_phase(dev, _build, card)
+        elif name == "remat":
+            held = {}
+            chip_smoke.remat_phase(dev, _build, card, held)
+            print(f"remat: each kernel's max |err| on the path's inputs {held}")
+        elif name == "profiling":
+            chip_smoke.profiling_phase(dev, _build, card)
+        elif name == "convergence":
+            chip_smoke.convergence_phase(dev, _build, card)
+        elif name == "surface":
+            chip_smoke.surface_phase(dev, card)
         elif name == "torchrun":
             from vcvits_tpu_torch.config import load_config
             from vcvits_tpu_torch.data.dataset import VoiceConversionDataset, preprocess

@@ -147,14 +147,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         if args.preload_dump:
             return
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        from vcvits_tpu_torch.utils.profiling import trace
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if trainer.device.type == "cuda" else [])
-        os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=acts) as prof:
+        with trace(args.profile):
             trainer.fit(max_steps=args.max_steps, max_seconds=args.time_limit)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     else:
         trainer.fit(max_steps=args.max_steps, max_seconds=args.time_limit)
     if dist.is_initialized():

@@ -1,4 +1,5 @@
-"""F0 estimation (pYIN) and coarse pitch quantization, host-side NumPy.
+"""F0 estimation (pYIN), coarse pitch quantization and per-formant pitch
+normalisation (`normalize_pitch`, which no path calls), host-side NumPy.
 
 The port's copy of vcvits_tpu/dsp/pitch.py: a vectorized implementation of
 pYIN (Mauch & Dixon 2014) with FFT-autocorrelation difference function,
@@ -286,3 +287,16 @@ def coarse_f0(
     out = np.round(f0_mel).astype(np.int64)
     assert out.max(initial=1) < f0_bin and out.min(initial=1) >= 1
     return out
+
+
+def normalize_pitch(pitch: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """Per-formant z-normalisation that keeps unvoiced zeros at zero.
+    `pitch` [n_formants, T]; `mean` / `std` one value per formant."""
+    pitch = np.array(pitch, dtype=np.float32, copy=True)
+    mean = np.asarray(mean, dtype=np.float32).reshape(-1, 1)
+    std = np.asarray(std, dtype=np.float32).reshape(-1, 1)
+    zeros = pitch == 0.0
+    pitch -= mean
+    pitch /= std
+    pitch[zeros] = 0.0
+    return pitch

@@ -41,11 +41,36 @@ class HubertConfig:
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
 
+    @property
+    def downsample(self) -> int:
+        """Input samples per output frame: the product of the strides."""
+        d = 1
+        for _, _, s in self.conv_layers:
+            d *= s
+        return d  # 320 for base
+
+    @property
+    def receptive_field(self) -> int:
+        """Input samples one output frame sees."""
+        rf, d = 1, 1
+        for _, k, s in self.conv_layers:
+            rf += (k - 1) * d
+            d *= s
+        return rf  # 400 for base
+
 
 HUBERT_BASE = HubertConfig()
 HUBERT_XTRALARGE = HubertConfig(
     hidden_size=1280, num_layers=48, num_heads=16, intermediate_size=5120,
 )
+
+
+def hubert_frames(num_samples: int, cfg: HubertConfig = HUBERT_BASE) -> int:
+    """Output frames for a (padded) input of `num_samples` samples."""
+    t = num_samples
+    for _, k, s in cfg.conv_layers:
+        t = (t - k) // s + 1
+    return t
 
 
 class GroupNormAll(nn.Module):

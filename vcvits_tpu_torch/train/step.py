@@ -18,6 +18,16 @@ Counterpart of vcvits_tpu/train/step.py:make_train_step. One call of
    gradient; then the LS-GAN loss of both discriminators, backward, grad
    norm, AdamW step.
 
+`cfg.train.remat_policy` trades memory for recomputation as JAX's
+`jax.checkpoint` does around the same two functions: the generator's
+training forward and the MPD + MSD forward run under
+`torch.utils.checkpoint` ("nothing": the whole forward is recomputed in the
+backward; "dots": the outputs of matrix products and convolutions are
+kept, the rest recomputed). The recompute replays the first run's draws
+(`checkpointed`), so each policy computes what "none" computes and leaves
+the step's generators where "none" leaves them. The D half's recomputed
+generator forward runs without gradient and is not wrapped, as in JAX.
+
 `dtype` is the compute dtype (`make_train_step(cfg, dtype=...)`): float32,
 or bfloat16 as `"fp16_run": true` selects. Parameters, gradients, AdamW
 and every loss stay float32; the casts are JAX's: the targets come from
@@ -58,11 +68,14 @@ restores into any layout.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from vcvits_tpu_torch.config import Config
 from vcvits_tpu_torch.dsp.spectrogram import mel_spectrogram
@@ -103,12 +116,53 @@ class StepDraws:
 
 
 def check_step_config(cfg: Config, dtype: torch.dtype) -> None:
-    """Refuse what the train steps do not port: a remat policy, a compute
-    dtype other than float32 or bfloat16."""
-    if cfg.train.remat_policy != "none":
-        raise NotImplementedError(f"remat_policy {cfg.train.remat_policy!r} is not ported")
+    """Refuse a compute dtype other than float32 or bfloat16."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+
+
+REMAT_POLICIES = ("none", "dots", "nothing")
+# the ops whose outputs "dots" keeps (jax.checkpoint_policies.checkpoint_dots:
+# dot_general and convolution)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten.convolution.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn: Callable[[], object], policy: str,
+                 generators: Sequence[torch.Generator] = ()) -> object:
+    """fn() under torch.utils.checkpoint with the remat `policy` ("dots" or
+    "nothing"). The recompute in the backward replays the first run's
+    draws: each of `generators` is set back to its state at entry before
+    it and to its state at the first run's end after it (a recompute stops
+    once it has rebuilt what the backward needs), so the draws that follow
+    are those of an unwrapped call. `checkpoint`'s own `preserve_rng_state`
+    restores only the default generators. What else fn reads besides its
+    tensors, such as the `dropout_rows` context, fn must set up itself: the
+    recompute runs inside the backward."""
+    entry = [g.get_state() for g in generators]
+    end = []
+
+    def run():
+        if not end:
+            out = fn()
+            end.extend(g.get_state() for g in generators)
+            return out
+        for g, state in zip(generators, entry):
+            g.set_state(state)
+        try:
+            return fn()
+        finally:
+            for g, state in zip(generators, end):
+                g.set_state(state)
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if policy == "dots" else noop_context_fn)
+    return checkpoint(run, use_reentrant=False, context_fn=context_fn)
 
 
 def _grad_norm(params, sharded: Sequence = (), mesh: Optional[Mesh] = None) -> torch.Tensor:
@@ -357,6 +411,8 @@ class TrainStep(GANStep):
                  mesh: Optional[Mesh] = None):
         device = resolve_device(device)
         check_step_config(cfg, dtype)
+        if cfg.train.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.train.remat_policy!r}")
         gen = SynthesizerSVC.from_config(cfg, dtype=dtype, device=device,
                                          seed=seed if g_state is None else None,
                                          hubert_cfg=hubert_cfg)
@@ -400,6 +456,15 @@ class TrainStep(GANStep):
                             eps=eps, ids_str=ids_str, generator=self.generator,
                             dropout_generator=self.dropout_generator)
 
+    def _remat(self, fn: Callable[[], object], draws: bool = False) -> object:
+        """fn() under the config's remat policy; `draws`: fn draws from the
+        step's generators (the generator forward), which a recompute replays."""
+        policy = self.cfg.train.remat_policy
+        if policy == "none":
+            return fn()
+        return checkpointed(fn, policy,
+                            (self.generator, self.dropout_generator) if draws else ())
+
     def __call__(self, batch: Batch, draws: Optional[StepDraws] = None,
                  timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
         """One step on a batch of padded tensors on the step's device:
@@ -429,11 +494,13 @@ class TrainStep(GANStep):
         cfg, t = self.cfg, self.cfg.train
         x_wav, hub, y_spec, y_mel = feats
         self.disc.requires_grad_(False)
-        o, ids, _, y_mask, (_, z_p, m_p, logs_p, _, logs_q) = self._gen_forward(
-            batch, x_wav, hub, y_spec, draws.eps, draws.ids_str)
+        o, ids, _, y_mask, (_, z_p, m_p, logs_p, _, logs_q) = self._remat(
+            lambda: self._gen_forward(batch, x_wav, hub, y_spec, draws.eps, draws.ids_str),
+            draws=True)
         sections.mark("G forward")
         y_seg = self._target_segment(batch, ids)
-        (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
+        (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self._remat(
+            lambda: self.disc(y_seg, o))
         share = self._share
         loss_p_fm = share(feature_loss(p_fr, p_fg))
         loss_s_fm = share(feature_loss(s_fr, s_fg))
@@ -475,7 +542,7 @@ class TrainStep(GANStep):
                 o2, ids2 = o.detach(), ids
         sections.mark("D-step generator recompute")
         y_seg2 = self._target_segment(batch, ids2)
-        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg2, o2)
+        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self._remat(lambda: self.disc(y_seg2, o2))
         loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
         loss_s, s_r, s_g = discriminator_loss(s_lr, s_lg)
         share = self._share

@@ -6,7 +6,8 @@ vcvits_tpu/train/tts_trainer.py): bucketed (text, audio, F0) batches,
 of audio (collate_tts, on a background thread), resumes from the latest
 checkpoint of its workdir (the port's CheckpointManager, shape-tolerant),
 and steps until `max_steps` or cfg.train.max_epochs, logging every
-`log_interval` steps, synthesizing the first training sentence every
+`log_interval` steps (with steps/s, an EMA of the step's wall time from
+utils/profiling.py's `StepTimer`, as JAX's), synthesizing the first training sentence every
 `eval_interval` (`log_validation`, whose failure is logged and never ends
 training) and checkpointing every `checkpoint_interval`. It writes
 config.json into the workdir, which `TTSSynthesizer.from_checkpoint`
@@ -48,6 +49,7 @@ from vcvits_tpu_torch.train.trainer import NullLogger
 from vcvits_tpu_torch.train.tts_step import TTSTrainStep
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.logging import TensorBoardLogger, alignment_to_image, mel_to_image
+from vcvits_tpu_torch.utils.profiling import StepTimer
 
 logger = logging.getLogger(__name__)
 
@@ -115,6 +117,7 @@ class TTSTrainer:
         step.generator.manual_seed(cfg.train.seed)
         step.dropout_generator.manual_seed(cfg.train.seed + 1)
         step_no: Optional[int] = None
+        timer = StepTimer()
         for epoch in range(cfg.train.max_epochs):
             for batch in prefetch(self._batches(ds, epoch)):
                 if step_no is None:
@@ -122,9 +125,12 @@ class TTSTrainer:
                 if max_steps is not None and step_no >= max_steps:
                     return self._finish(step_no)
                 metrics = step(to_device(batch, self.device))
+                timer.tick()
                 step_no += 1
                 if step_no % cfg.train.log_interval == 0 and main:
                     scalars = {k: float(v) for k, v in metrics.items()}
+                    if timer.steps_per_sec:
+                        scalars["steps_per_sec"] = timer.steps_per_sec
                     self.tb.summarize(step_no, scalars=scalars)
                     logger.info("tts step %d loss_g=%.3f loss_d=%.3f dur=%.3f", step_no,
                                 scalars["loss/g/total"], scalars["loss/d/total"],

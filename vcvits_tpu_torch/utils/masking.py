@@ -1,12 +1,15 @@
-"""Masks, segment slicing and nearest-neighbour time interpolation, [B, T, C].
+"""Masks, segment slicing, nearest-neighbour time interpolation, the
+Gaussian KL and sinusoidal position signals, [B, T, C].
 
 Counterparts of vcvits_tpu/utils/masking.py (sequence_mask, slice_segments,
-rand_slice_segments, generate_path) and
-vcvits_tpu/models/synthesizer.py:nearest_interp. Masks are [B, T, 1] floats.
+rand_slice_segments, kl_divergence, subsequent_mask, the timing signals,
+generate_path) and vcvits_tpu/models/synthesizer.py:nearest_interp. Masks
+are [B, T, 1] floats.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -61,6 +64,48 @@ def segment_starts(u: torch.Tensor, lengths: torch.Tensor, segment_size: int) ->
     of `rand_slice_segments` for its uniform draws `u` [B]."""
     ids_str_max = torch.clamp_min(lengths.to(torch.int32) - segment_size + 1, 1)
     return torch.floor(u * ids_str_max.to(u.dtype)).to(torch.int32)
+
+
+def kl_divergence(m_p: torch.Tensor, logs_p: torch.Tensor, m_q: torch.Tensor,
+                  logs_q: torch.Tensor) -> torch.Tensor:
+    """Pointwise KL(P || Q) between diagonal Gaussians."""
+    kl = (logs_q - logs_p) - 0.5
+    return kl + 0.5 * (torch.exp(2.0 * logs_p) + (m_p - m_q) ** 2) * torch.exp(-2.0 * logs_q)
+
+
+def subsequent_mask(length: int) -> torch.Tensor:
+    """Causal attention mask [1, 1, L, L] float32: 1 where query q may
+    attend to key k <= q."""
+    return torch.tril(torch.ones(length, length))[None, None]
+
+
+def get_timing_signal_1d(length: int, channels: int, min_timescale: float = 1.0,
+                         max_timescale: float = 1.0e4) -> torch.Tensor:
+    """Sinusoidal position signal [1, T, C] float32 (tensor2tensor's layout:
+    channels // 2 sines, then channels // 2 cosines, an odd last channel
+    zero)."""
+    position = torch.arange(length, dtype=torch.float32)
+    num = channels // 2
+    increment = math.log(float(max_timescale) / float(min_timescale)) / max(num - 1, 1)
+    inv = min_timescale * torch.exp(torch.arange(num, dtype=torch.float32) * -increment)
+    scaled = position[:, None] * inv[None, :]
+    signal = torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+    return torch.nn.functional.pad(signal, (0, channels % 2))[None]
+
+
+def add_timing_signal_1d(x: torch.Tensor, min_timescale: float = 1.0,
+                         max_timescale: float = 1.0e4) -> torch.Tensor:
+    """x + the position signal, x [B, T, C]."""
+    _, t, c = x.shape
+    return x + get_timing_signal_1d(t, c, min_timescale, max_timescale).to(x)
+
+
+def cat_timing_signal_1d(x: torch.Tensor, min_timescale: float = 1.0,
+                         max_timescale: float = 1.0e4, axis: int = -1) -> torch.Tensor:
+    """x and the position signal concatenated along `axis`, x [B, T, C]."""
+    b, t, c = x.shape
+    signal = get_timing_signal_1d(t, c, min_timescale, max_timescale).to(x)
+    return torch.cat([x, signal.expand(b, t, c)], dim=axis)
 
 
 def generate_path(duration: torch.Tensor, y_mask: torch.Tensor, x_mask: torch.Tensor
