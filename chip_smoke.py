@@ -281,24 +281,34 @@
    plain versions on the TP
    inference's own inputs (K2's weights gathered from the shards), each
    rank's peak memory; (iv) a ServingDaemon with 2 replicas against 1, 4 x
-   10 s in one batch (atol 1e-5), requests/s; (v) dryrun_multigpu(2).
+   10 s in one batch (atol 1e-5), requests/s; (v) dryrun_multigpu(2);
+   (vi) remat under the layouts, four ranks: the dry run's tiny config
+   (dropout on, the masks drawn by the step) at B = 4 with injected
+   global draws, DP = 2 on ranks 0-1 beside TP = 2 on ranks 2-3, then DP
+   2 x TP 2 on all four; in each layout the "dots" and "nothing" steps
+   equal that layout's "none" step bit for bit (metrics, gradients, both
+   step generators), and against the one-process "none" step they hold
+   the checks of (ii): the recompute in the backward runs the TP
+   collectives again on every rank, and the DP rows' dropout masks.
    Each phase prints its seconds.
 7e. remat: the VC step at path B's batch (48k_base, B = 16, segment
    16384) under cfg.train.remat_policy "none", "dots" and "nothing", fp32
    and bf16. In a spawned process under deterministic algorithms
    (`_rank_device`), one step of each from the same state, held against
-   "none": bit for bit, or else the metrics within MULTI_RTOL, each
-   parameter group's gradients within `grad_limit` and the updated
-   parameters within 2 x lr; both step generators where "none" leaves
-   them. Then here, default algorithms: REMAT_STEPS steps each, ms/step
+   "none" bit for bit: metrics, gradients, updated parameters, and both
+   step generators where "none" leaves them. Then here, default
+   algorithms: REMAT_STEPS steps each, ms/step
    over the last ones, peak GiB and launches a step (K3 1, K5 64 + 32
    under "none", 96 + 32 under the others), and K5 and K3 held to their
    plain versions on the "dots" steps' inputs.
 7f. profiling: utils/profiling.py around train steps (48k_base, B = 4,
-   fp32): one step under `trace`, and the steps that run while a 3 s
+   fp32): one step under `trace`, and the steps that run while a
    `start_server` capture, asked for over HTTP from another thread,
-   records on the server's thread; each trace's size, device events and
-   the K5 and K3 kernels in it, which must be there where they launched.
+   records on the server's thread; the steps held are those that began
+   and ended while the server's `capturing` event was set (at least two;
+   a shorter capture is asked for again at twice the length). Each
+   trace's size, device events and the K5 and K3 kernels in it, at least
+   as many as the steps held launched.
 7g. convergence: tools/torch_convergence_run.py at 24 steps, B = 4, 4
    speakers x 2 clips, validation every 8 steps, 4 steps on the grown
    speaker table: every value finite, phase 2 logged after phase 1's end,
@@ -333,6 +343,8 @@ import sys
 import tempfile
 import time
 import warnings
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -4195,6 +4207,102 @@ def tp_rank(rank: int, n: int) -> dict:
     return out
 
 
+REMAT_LAYOUT_B = 4  # (vi): two rows a data rank
+
+
+def remat_layout_rank(rank: int, n: int, on_card: bool) -> Optional[dict]:
+    """(vi) Four ranks: DP = 2 on ranks 0-1 beside TP = 2 on ranks 2-3,
+    then DP 2 x TP 2 on all four, each layout's "none", "dots" and
+    "nothing" steps on the dry run's tiny config (one MPD period, dropout
+    0.1 drawn by the step) from seed 0 with injected global draws. Ranks 0
+    and 2 also run the one-process "none" step. On the card under
+    deterministic algorithms (`_rank_device`), else on the CPU. Returns
+    rank 0's and rank 2's {layout: {policy: (equal to the layout's "none"
+    bit for bit, `_compare_steps` against one process)}} and rank 0's
+    launches."""
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.data.loader import to_device
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.ops import _build
+    from vcvits_tpu_torch.parallel.dryrun import TINY_HUBERT, tiny_batch, tiny_config
+    from vcvits_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+
+    if on_card:
+        dev = _rank_device(rank)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+    raw = tiny_config(REMAT_LAYOUT_B)
+    raw["model"]["multi_period_discriminator_periods"] = [2]
+    batch = tiny_batch(REMAT_LAYOUT_B)
+    g = np.random.default_rng(11)
+    t_spec = batch["y_wav"].shape[1] // raw["data"]["hop_length"]
+    seg = raw["train"]["segment_size"] // raw["data"]["hop_length"]
+    draws = {}
+    for eps, ids in (("eps", "ids_str"), ("eps2", "ids_str2")):
+        draws[eps] = g.standard_normal((REMAT_LAYOUT_B, t_spec, raw["model"]["inter_channels"]),
+                                       dtype=np.float32)
+        draws[ids] = g.integers(0, t_spec - seg + 1, (REMAT_LAYOUT_B,)).astype(np.int32)
+
+    def run(policy, mesh):
+        cfg = Config.from_dict(dict(raw, train=dict(raw["train"], remat_policy=policy)))
+        step = TrainStep(cfg, device=dev, hubert_cfg=HubertConfig(**TINY_HUBERT), seed=0,
+                         mesh=mesh)
+        local = batch if mesh is None else shard_batch(batch, mesh)
+        m = step(to_device(local, dev),
+                 StepDraws(**{k: torch.as_tensor(v, device=dev) for k, v in draws.items()}))
+        return ({k: float(v) for k, v in m.items()}, _grads(step),
+                (step.generator.get_state(), step.dropout_generator.get_state()))
+
+    dp = make_mesh(2, 1, ranks=[0, 1])
+    tp = make_mesh(1, 2, ranks=[2, 3])
+    both = make_mesh(2, 2)
+    ref = run("none", None) if rank in (0, 2) else None
+    _build.LAUNCHES.clear()
+    out = {}
+    for name, mesh in (("DP=2" if rank < 2 else "TP=2", dp if rank < 2 else tp),
+                       ("DP2xTP2", both)):
+        none = run("none", mesh)
+        rec = {}
+        for policy in REMAT_POLICIES[1:]:
+            m, grads, gens = run(policy, mesh)
+            equal = (m == none[0] and grads.keys() == none[1].keys()
+                     and all(torch.equal(v, none[1][k]) for k, v in grads.items())
+                     and all(torch.equal(a, b) for a, b in zip(gens, none[2])))
+            rec[policy] = (equal, None if ref is None else _compare_steps(m, grads, *ref[:2]))
+        out[name] = rec
+    out["launches"] = dict(_build.LAUNCHES)
+    return out if rank in (0, 2) else None
+
+
+def remat_layout_phase(card: str) -> dict:
+    """(vi) `remat_layout_rank` on four ranks over gloo sharing the card
+    (round-robin over the cards when there are more) -> rank 0's launches."""
+    from vcvits_tpu_torch.parallel.dryrun import launch
+
+    t0 = time.perf_counter()
+    recs = launch(remat_layout_rank, 4, True, backend="gloo", timeout=900)
+    for r in (recs[0], recs[2]):
+        for layout, rec in r.items():
+            if layout == "launches":
+                continue
+            for policy, (equal, cmp) in rec.items():
+                print(f"multi_gpu (vi) remat {policy} at {layout} over gloo, tiny config B="
+                      f"{REMAT_LAYOUT_B}, deterministic algorithms: equal to the layout's none "
+                      f"bit for bit {equal}; against the one-process none step worst metric rel "
+                      f"err {cmp['metric_rel']:.3e} ({cmp['metric'] or '-'}; limit "
+                      f"{MULTI_RTOL}), worst group's grad ||err|| / ||grad|| "
+                      f"{cmp['groups'][cmp['worst']]['l2']:.3e} ({cmp['worst']}; limit "
+                      f"{grad_limit(cmp['worst'])}) on {card}")
+                if not (equal and cmp["same_grads"] and cmp["metric_rel"] <= MULTI_RTOL
+                        and not off_groups(cmp)):
+                    raise AssertionError(f"multi_gpu (vi): remat {policy} at {layout} is off: "
+                                         f"{equal} {cmp}")
+    print(f"multi_gpu (vi) remat under the layouts: {time.perf_counter() - t0:.1f} s on {card}")
+    return recs[0]["launches"]
+
+
 def replica_phase(dev, card: str) -> dict:
     """(iv) ServingDaemon with 2 replicas against 1 on 48k_base's perturbed
     weights: 4 x 10 s requests at noise 0 in one batch, fp32."""
@@ -4293,6 +4401,7 @@ def multi_gpu_phase(dev, _build, card: str) -> dict:
     add(rec["launches"])
     print(f"multi_gpu (v) dryrun_multigpu(2) over {rec['backend']}: "
           f"{time.perf_counter() - t0:.1f} s on {card}")
+    add(remat_layout_phase(card))
     return counts
 
 
@@ -4337,14 +4446,12 @@ REMAT_POLICIES = ("none", "dots", "nothing")
 REMAT_STEPS = 5  # steps a policy and dtype: ms/step over steps 2-5
 
 
-def remat_config(policy: str, lr=None):
-    """48k_base with `policy` as cfg.train.remat_policy (and `lr`)."""
+def remat_config(policy: str):
+    """48k_base with `policy` as cfg.train.remat_policy."""
     from vcvits_tpu_torch.config import Config, load_config
 
     raw = load_config(CONFIG).to_dict()
     raw["train"]["remat_policy"] = policy
-    if lr is not None:
-        raw["train"]["learning_rate"] = lr
     return Config.from_dict(raw)
 
 
@@ -4360,7 +4467,7 @@ def remat_rank(rank: int, n: int) -> dict:
     cfg = remat_config("none")
     g_state = perturbed_state(cfg)
     batch = train_batch(cfg, cfg.train.batch_size, 2.0, 4.0, np.random.default_rng(8), dev)
-    out = {"lr": cfg.train.learning_rate}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         ref = None
         for policy in REMAT_POLICIES:
@@ -4387,9 +4494,7 @@ def remat_rank(rank: int, n: int) -> dict:
 def remat_phase(dev, _build, card: str, held: dict) -> dict:
     """The VC train step under each remat policy at path B's batch (48k_base,
     B = 16, segment 16384), fp32 and bf16: held against "none" from the same
-    state in a spawned process under deterministic algorithms (bit for bit,
-    or else each group's gradients within `grad_limit`, the metrics within
-    MULTI_RTOL and the parameters within AdamW's first-step bound, 2 x lr);
+    state in a spawned process under deterministic algorithms, bit for bit;
     then here, with the default algorithms, REMAT_STEPS steps each: ms/step,
     peak GiB and launches a step (K3 1; K5 64 forward and 32 backward under
     "none", 96 and 32 under the others: the generator forward's 32 gates
@@ -4400,19 +4505,15 @@ def remat_phase(dev, _build, card: str, held: dict) -> dict:
 
     t0 = time.perf_counter()
     rec = launch(remat_rank, 1, backend="gloo", timeout=900)[0]
-    lr = rec.pop("lr")
     for (policy, label), cmp in rec.items():
         exact = repeats_itself(cmp) and cmp["param_max_diff"] == 0.0
         print(f"remat {policy} {label} against none (deterministic algorithms, one step from the "
               f"same state): bit for bit {exact}; worst metric rel err {cmp['metric_rel']:.3e} "
               f"({cmp['metric'] or '-'}), worst group's grad ||err|| / ||grad|| "
               f"{cmp['groups'][cmp['worst']]['l2']:.3e} ({cmp['worst']}), updated parameters' "
-              f"max |diff| {cmp['param_max_diff']:.3e} (bound 2 x lr = {2 * lr:.1e}), "
-              f"generators where none leaves them: {cmp['generators_equal']}")
-        ok = cmp["same_grads"] and cmp["generators_equal"] and (exact or (
-            cmp["metric_rel"] <= MULTI_RTOL and not off_groups(cmp)
-            and cmp["param_max_diff"] <= 2 * lr * (1 + 1e-5)))
-        if not ok:
+              f"max |diff| {cmp['param_max_diff']:.3e}, generators where none leaves them: "
+              f"{cmp['generators_equal']}")
+        if not (exact and cmp["same_grads"] and cmp["generators_equal"]):
             raise AssertionError(f"remat {policy} {label}: differs from none: {cmp}")
     print(f"remat: deterministic comparison {time.perf_counter() - t0:.1f} s")
 
@@ -4484,16 +4585,50 @@ PROFILED_KERNELS = {"fused_gate": "gate_fwd_kernel", "fused_gate_backward": "gat
                     "stft_mel": "stft_mel_kernel"}
 
 
-def profiling_phase(dev, _build, card: str) -> dict:
-    """utils/profiling.py on train steps (48k_base, B = 4, fp32): one step
-    under `trace`, and the steps that run while a `start_server` capture of
-    3 s (at least two whole steps), asked for over HTTP from another
-    thread, records on the server's thread. Each trace's file size, device
-    events and the K5 and K3 kernels in it, which must be there where the
-    wrappers launched them."""
+def server_capture(server, step, batch, _build, seconds: float) -> tuple:
+    """One `start_server` capture of `seconds`, asked for over HTTP from
+    another thread, while the main thread takes steps -> (trace path, the
+    launches of the steps that began and ended while the server's
+    `capturing` event was set, how many such steps, all steps taken)."""
     import threading
     import urllib.request
 
+    got = {}
+
+    def ask():
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/trace?seconds={seconds}",
+                                    timeout=300) as r:
+            got.update(json.loads(r.read()))
+
+    client = threading.Thread(target=ask)
+    client.start()
+    if not server.capturing.wait(timeout=300):
+        raise AssertionError("profiling: the server's capture did not start")
+    inside, n_inside, n = {}, 0, 0
+    while client.is_alive():
+        began = server.capturing.is_set()
+        before = dict(_build.LAUNCHES)
+        step(batch)
+        torch.cuda.synchronize()
+        n += 1
+        if began and server.capturing.is_set():
+            n_inside += 1
+            for k, v in _build.LAUNCHES.items():
+                inside[k] = inside.get(k, 0) + v - before.get(k, 0)
+    client.join()
+    return got["path"], inside, n_inside, n
+
+
+def profiling_phase(dev, _build, card: str) -> dict:
+    """utils/profiling.py on train steps (48k_base, B = 4, fp32): one step
+    under `trace`, and a `start_server` capture, asked for over HTTP from
+    another thread, that records on the server's thread while the main
+    thread takes steps. The steps that began and ended while the capture
+    recorded (the server's `capturing` event) are the ones held: each of
+    K5's and K3's kernels must be in the trace at least as often as they
+    launched it. A capture that held fewer than two whole steps is asked
+    for again at twice the length. Each trace's file size, device events
+    and K5 and K3 counts."""
     from vcvits_tpu_torch.config import load_config
     from vcvits_tpu_torch.train.step import TrainStep
     from vcvits_tpu_torch.utils.profiling import start_server, trace
@@ -4511,45 +4646,45 @@ def profiling_phase(dev, _build, card: str) -> dict:
         with trace(os.path.join(tmp, "trace")):
             step(batch)
             torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0  # a step under the profiler
         captures["trace (1 step)"] = (os.path.join(tmp, "trace", "trace.json"),
                                        dict(_build.LAUNCHES), time.perf_counter() - t0)
         server = start_server(0, logdir=os.path.join(tmp, "server"))
-        got = {}
-
-        def ask():
-            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/trace?seconds=3",
-                                        timeout=300) as r:
-                got.update(json.loads(r.read()))
-
+        # room for about three such steps; the check does not rest on it
+        seconds = round(max(1.0, 3.5 * profiled_s), 1)
         try:
-            client = threading.Thread(target=ask)
             _build.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            client.start()
-            n = 0
-            while client.is_alive():
-                step(batch)
-                torch.cuda.synchronize()
-                n += 1
-            client.join()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                path, inside, n_inside, n = server_capture(server, step, batch, _build, seconds)
+                print(f"profiling start_server capture of {seconds} s: {n} steps on the main "
+                      f"thread, {n_inside} of them whole inside the capture "
+                      f"({time.perf_counter() - t0:.1f} s)")
+                if n_inside >= 2:
+                    break
+                seconds *= 2
+            else:
+                raise AssertionError("profiling: no capture held two whole steps")
         finally:
             server.stop()
-        captures[f"start_server capture (3 s, {n} steps on the main thread)"] = (
-            got["path"], dict(_build.LAUNCHES), time.perf_counter() - t0)
-        for label, (path, launched, seconds) in captures.items():
+        for k, v in _build.LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + v
+        captures[f"start_server capture ({seconds} s, {n_inside} whole steps inside)"] = (
+            path, inside, time.perf_counter() - t0)
+        for label, (path, launched, secs) in captures.items():
             size, n_dev, kernels = trace_kernels(path)
             found = {k: sum(c for name, c in kernels.items() if pattern in name)
                      for k, pattern in PROFILED_KERNELS.items()}
+            want = {k: launched.get(k, 0) for k in PROFILED_KERNELS}
             print(f"profiling {label}: {size / 2 ** 20:.2f} MiB, {n_dev} device events, "
-                  f"{len(kernels)} kernel names; K5/K3 in the trace {found}, launched "
-                  f"{ {k: launched.get(k, 0) for k in PROFILED_KERNELS} } ({seconds:.1f} s) "
-                  f"on {card}")
-            missing = [k for k in PROFILED_KERNELS if launched.get(k, 0) and not found[k]]
-            if missing:
-                raise AssertionError(f"profiling {label}: {missing} launched but not in the "
-                                     f"trace")
-            for k, v in launched.items():
-                counts[k] = counts.get(k, 0) + v
+                  f"{len(kernels)} kernel names; K5/K3 in the trace {found}, launched by the "
+                  f"steps held {want} ({secs:.1f} s) on {card}")
+            short = [k for k, v in want.items() if found[k] < v]
+            if short or not all(want.values()):
+                raise AssertionError(f"profiling {label}: {short} launched more often than "
+                                     f"the trace holds, or a kernel not launched: {want}")
+        for k, v in captures["trace (1 step)"][1].items():
+            counts[k] = counts.get(k, 0) + v
     del step
     torch.cuda.empty_cache()
     return counts

@@ -10,9 +10,6 @@ the TTS step, the CLIs under a process group, and the dry run.
   global sum(x_mask) sets both ranks' duration loss) against the
   one-process step on the same batch and injected global draws: every
   metric and gradient as in tests/test_torch_parallel.py.
-* A "dots" remat step at DP = 2 with dropout on (its masks drawn by the
-  step) against the one-process "none" step on the same batch, seed and
-  injected global draws.
 * `cli.train --distributed --model-parallel 2` and `cli.train_tts
   --distributed` under two ranks, as under torchrun.
 * `dryrun_multigpu(2)`.
@@ -73,16 +70,6 @@ def test_tts_dp2_step_with_unequal_lengths(tmp_path):
     grads = {f"{s}.{k}": p.grad.clone() for s, m in (("g", step.gen), ("d", step.disc))
              for k, p in m.named_parameters() if p.grad is not None}
     ranks.assert_step_close(got, ({k: float(v) for k, v in metrics.items()}, grads))
-
-
-def test_remat_dp2_step_matches_one_process(tmp_path):
-    from vcvits_tpu_torch.parallel.dryrun import tiny_batch, tiny_config
-
-    cfg, batch = tiny_config(2), tiny_batch(2)
-    assert cfg["model"]["p_dropout"] > 0 and cfg["train"].get("remat_policy", "none") == "none"
-    draws = ranks.global_draws(cfg, 2, batch["y_wav"].shape[1] // cfg["data"]["hop_length"])
-    got = launch(ranks.remat_dp2, 2, cfg, batch, draws, workdir=str(tmp_path))[0]
-    ranks.assert_step_close(got, ranks.one_step(cfg, batch, draws))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """utils/profiling.py on the CPU: `StepTimer` against JAX's on the same tick
 times, `trace` writing a Chrome trace of the block, and `start_server`
-answering a capture with a written trace that holds the main thread's
-operators (the capture runs on the server's thread). TTSTrainer's
+answering a capture with a written trace that holds every main-thread
+step that ran while its `capturing` event was set (the capture runs on
+the server's thread). TTSTrainer's
 steps_per_sec is held in test_torch_infer_tts.py.
 """
 
@@ -60,12 +61,15 @@ def test_server_capture_records_the_main_thread(tmp_path):
         capture=_get(f"{base}/trace?seconds=1")))
     try:
         client.start()
+        assert server.capturing.wait(timeout=60)
+        got["busy"] = _get(f"{base}/trace?seconds=0.1")
         x = torch.randn(64, 64)
+        inside = 0  # steps that began and ended while the capture recorded
         while client.is_alive():
+            began = server.capturing.is_set()
             with torch.profiler.record_function("main_thread_step"):
                 x @ x
-            if "busy" not in got and server._busy.locked():
-                got["busy"] = _get(f"{base}/trace?seconds=0.1")
+            inside += began and server.capturing.is_set()
         client.join(timeout=60)
         assert not client.is_alive()
         assert _get(f"{base}/trace?seconds=zero")[0] == 400
@@ -77,7 +81,7 @@ def test_server_capture_records_the_main_thread(tmp_path):
     assert body["path"] == str(tmp_path / "captures" / "trace_1.json")
     assert got["busy"][0] == 409
     names = [e.get("name") for e in _events(body["path"])]
-    assert "main_thread_step" in names and "aten::mm" in names
+    assert inside > 0 and names.count("main_thread_step") >= inside and "aten::mm" in names
 
 
 def test_server_stops(tmp_path):

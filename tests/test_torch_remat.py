@@ -1,19 +1,23 @@
 """Remat policies on the VC train step (`cfg.train.remat_policy`).
 
-* World 1, the dry run's tiny config with dropout on (p_dropout 0.1) and
-  the step's own generators (no injected draws): a "dots" and a "nothing"
-  step equal the "none" step from the same seed bit for bit, in float32 on
-  the CPU: every metric, gradient and updated parameter, AdamW's moments,
-  and both generators' states after the step. Each recomputes the
-  generator's training forward once in the backward: the WaveNet gates
-  (kernel K5 on the card) run 1.5 times as often.
+* World 1, the dry run's tiny config with dropout on (p_dropout 0.1, one
+  MPD period) and the step's own generators (no injected draws): a
+  "dots" and a "nothing" step equal the "none" step from the same seed
+  bit for bit, in float32 on the CPU: every metric, gradient and updated
+  parameter, AdamW's moments, and both generators' states after the step.
+  Each step also draws from the step's generator between the G forward
+  and its backward: the recompute must keep that draw, not rewind it, or
+  the D half's draws and the generator's end state differ. Each
+  recomputes the generator's training forward once in the backward: the
+  WaveNet gates (kernel K5 on the card) run 1.5 times as often.
 * The same step with a wrap that does not replay the generators (plain
   `torch.utils.checkpoint`, whose preserve_rng_state restores only the
   default generators) differs from "none": the test sees the trap.
 * The port's "dots" step against JAX's is in test_torch_remat_jax.py (a
   file of its own: compiling JAX's remat step takes most of a minute).
 * An unknown policy raises ValueError naming remat_policy, as JAX's does;
-  the TTS step ignores the field, as JAX's does.
+  the TTS step trains with the field set, wraps nothing and computes what
+  it computes without it, as JAX's never reads it.
 """
 
 import copy
@@ -33,27 +37,35 @@ torch.set_num_threads(1)
 
 def _cfg(policy: str, base=None) -> Config:
     """`base` (the dry run's tiny config by default) with `policy` set."""
-    raw = copy.deepcopy(base or tiny_config(2))
+    raw = copy.deepcopy(base or dict(tiny_config(2), model=dict(
+        tiny_config(2)["model"], multi_period_discriminator_periods=[2])))
     raw["train"]["remat_policy"] = policy
     return Config.from_dict(raw)
 
 
 def _after_step(policy: str) -> dict:
     """One step of the tiny config (dropout 0.1) from seed 0 with the
-    step's own draws -> what the step leaves: metrics, gradients, updated
-    parameters, AdamW's moments, the generators' states, the gate calls."""
+    step's own draws, and one draw of its own from the step's generator
+    between the G forward and its backward (where the KL is taken) -> what
+    the step leaves: metrics, gradients, updated parameters, AdamW's
+    moments, the generators' states, that draw, the gate calls."""
     assert tiny_config(2)["model"]["p_dropout"] > 0
     step = TrainStep(_cfg(policy), device="cpu", hubert_cfg=HubertConfig(**TINY_HUBERT), seed=0)
     batch = {k: torch.as_tensor(v) for k, v in tiny_batch(2).items()}
-    gate = wavenet.fused_gate
-    calls = []
+    gate, kl = wavenet.fused_gate, step_mod.kl_loss
+    calls, between = [], []
 
     def counted(*args, **kw):
         calls.append(1)
         return gate(*args, **kw)
 
+    def kl_then_draw(*args, **kw):
+        between.append(torch.rand(4, generator=step.generator))
+        return kl(*args, **kw)
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(wavenet, "fused_gate", counted)
+        mp.setattr(step_mod, "kl_loss", kl_then_draw)
         metrics = step(batch)
     named = [(f"gen.{n}", p) for n, p in step.gen.named_parameters()]
     named += [(f"disc.{n}", p) for n, p in step.disc.named_parameters()]
@@ -67,7 +79,7 @@ def _after_step(policy: str) -> dict:
             "params": {n: p.detach().clone() for n, p in named},
             "moments": {(ids[i], k): v for (i, k), v in moments.items()},
             "generators": (step.generator.get_state(), step.dropout_generator.get_state()),
-            "gate_calls": len(calls)}
+            "between": between, "gate_calls": len(calls)}
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +96,9 @@ def _differences(got: dict, want: dict) -> list:
     out += [f"generator {i}" for i, (a, b) in enumerate(zip(got["generators"],
                                                             want["generators"]))
             if not torch.equal(a, b)]
+    if not (len(got["between"]) == len(want["between"]) == 1
+            and torch.equal(got["between"][0], want["between"][0])):
+        out.append("draw between the forward and the backward")
     return out
 
 
@@ -108,18 +123,53 @@ def test_remat_without_replayed_draws_differs(none_step, monkeypatch):
     assert "generator 0" in diff and "generator 1" in diff
 
 
+@pytest.mark.parametrize("policy", ["dots", "nothing"])
+def test_checkpointed_keeps_draws_made_before_the_backward(policy):
+    """`checkpointed` alone: a forward that draws noise and a dropout mask
+    from explicit generators, one draw from each between the forward and
+    the backward, one after. Wrapped or not, the output, the gradients and
+    every draw are the same: the recompute replays the forward's draws and
+    then leaves each generator where the backward found it."""
+
+    def run(wrap):
+        gens = [torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)]
+        w = torch.linspace(-1, 1, 48).reshape(6, 8).requires_grad_(True)
+        x = torch.randn(5, 6, generator=torch.Generator().manual_seed(3))
+
+        def fn():
+            h = torch.tanh(x @ w + torch.randn(5, 8, generator=gens[0]))
+            keep = torch.rand(5, 8, generator=gens[1]) > 0.3
+            return (h * keep).sum(1)
+
+        out = step_mod.checkpointed(fn, policy, gens) if wrap else fn()
+        draws = [torch.rand(3, generator=g) for g in gens]
+        out.pow(2).sum().backward()
+        draws += [torch.rand(3, generator=g) for g in gens]
+        return out.detach(), w.grad, draws
+
+    (out, grad, draws), (out0, grad0, draws0) = run(True), run(False)
+    assert torch.equal(out, out0) and torch.equal(grad, grad0)
+    assert all(torch.equal(a, b) for a, b in zip(draws, draws0))
+
+
 def test_unknown_remat_policy_raises():
     with pytest.raises(ValueError, match="remat_policy"):
         TrainStep(_cfg("bogus"), device="cpu", hubert_cfg=HubertConfig(**TINY_HUBERT))
 
 
-def test_tts_step_ignores_remat_policy():
+def test_tts_step_ignores_remat_policy(monkeypatch):
     """JAX's TTS step never reads remat_policy; the port's trains with it
-    set and computes what it computes without it."""
+    set, wraps nothing in a checkpoint, and computes what it computes
+    without it."""
     from tests.test_torch_tts_train import CFG, N_VOCAB, tts_batch
     from vcvits_tpu_torch.data.loader import to_device
     from vcvits_tpu_torch.train.tts_step import TTSTrainStep
 
+    def refuse(*args, **kw):
+        raise AssertionError("the TTS step checkpointed a forward")
+
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", refuse)
+    monkeypatch.setattr(step_mod, "checkpoint", refuse)
     batch = to_device(tts_batch(), "cpu")
     out = {}
     for policy in ("none", "dots"):

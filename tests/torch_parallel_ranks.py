@@ -114,19 +114,6 @@ def step_layouts(rank, n, cfg_dict, batch, draws):
     return out if rank in (0, 2) else None
 
 
-def remat_dp2(rank, n, cfg_dict, batch, draws):
-    """A "dots" remat step at DP = 2 from seed 0 with the global `draws` and
-    the config's dropout, whose masks the step draws: the recompute in the
-    backward replays each rank's masks of the global batch under
-    `dropout_rows`. Returns rank 0's (metrics, gradients)."""
-    from vcvits_tpu_torch.parallel.mesh import make_mesh, shard_batch
-
-    cfg = dict(cfg_dict, train=dict(cfg_dict["train"], remat_policy="dots"))
-    mesh = make_mesh(2, 1)
-    out = one_step(cfg, shard_batch(batch, mesh), draws, mesh)
-    return out if rank == 0 else None
-
-
 def wn_under_tp(mesh):
     """A 2-layer WN at hidden 256, kernel 5, with a speaker layer: every
     in_N / res_skip_N / cond_layer is sharded. Its forward, the input's and

@@ -194,14 +194,14 @@ class Run:
         except OSError:
             pass
 
-    def phase(self, cfg, fl: str, workdir: str, max_steps: int, device: str = "cuda"):
+    def phase(self, cfg, fl: str, workdir: str, max_steps: int):
         """One fresh bf16 Trainer fit to `max_steps` -> (log, val_log)."""
         import torch
 
         from vcvits_tpu_torch.train.trainer import Trainer
 
         log, val_log = [], []
-        trainer = Trainer(cfg, workdir=workdir, device=device, dtype=torch.bfloat16)
+        trainer = Trainer(cfg, workdir=workdir, dtype=torch.bfloat16)
         orig = trainer.tb.summarize
 
         def spy(step, scalars=None, **kw):
@@ -301,7 +301,6 @@ def parse_args(argv=None):
     ap.add_argument("--clips", type=int, default=8)
     ap.add_argument("--eval-interval", type=int, default=500)
     ap.add_argument("--log-interval", type=int, default=100)
-    ap.add_argument("--checkpoint-interval", type=int, default=2000)
     ap.add_argument("--grown-steps", type=int, default=300,
                     help="steps of phase 3, on the grown speaker table")
     ap.add_argument("--root", default=None,
@@ -334,7 +333,7 @@ def main(argv=None) -> Dict:
         print(f"corpus: {n_clips} train clips (+{args.speakers} val), {args.speakers} speakers",
               flush=True)
         workdir = os.path.join(root, "logs")
-        cfg = build_cfg(fl, root, args.speakers, args.batch, args.checkpoint_interval, vfl=vfl,
+        cfg = build_cfg(fl, root, args.speakers, args.batch, 2000, vfl=vfl,
                         eval_interval=args.eval_interval, log_interval=args.log_interval)
         t_prep = time.time()
         for f in (fl, vfl):

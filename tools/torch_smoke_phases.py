@@ -3,9 +3,11 @@
 
     python3 tools/torch_smoke_phases.py base_json,multi_gpu,torchrun
     python3 tools/torch_smoke_phases.py remat,profiling,convergence,surface
+    python3 tools/torch_smoke_phases.py remat_layouts,profiling
 
 Builds the kernels, then runs the named phases (any of base_json,
-multi_gpu, torchrun, remat, profiling, convergence, surface) with
+multi_gpu, torchrun, remat, profiling, convergence, surface, or
+remat_layouts: multi_gpu's (vi), remat under the layouts, alone) with
 chip_smoke.py's own functions, each with its seconds. base_json and remat
 print each kernel's max |err| on the path's inputs.
 It prints no kernels line and no result line: chip_smoke.py stays the one
@@ -49,6 +51,8 @@ def main() -> int:
             print(f"base_json: each kernel's max |err| on the path's inputs {held}")
         elif name == "multi_gpu":
             chip_smoke.multi_gpu_phase(dev, _build, card)
+        elif name == "remat_layouts":
+            chip_smoke.remat_layout_phase(card)
         elif name == "remat":
             held = {}
             chip_smoke.remat_phase(dev, _build, card, held)

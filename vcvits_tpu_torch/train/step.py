@@ -138,26 +138,26 @@ def checkpointed(fn: Callable[[], object], policy: str,
     """fn() under torch.utils.checkpoint with the remat `policy` ("dots" or
     "nothing"). The recompute in the backward replays the first run's
     draws: each of `generators` is set back to its state at entry before
-    it and to its state at the first run's end after it (a recompute stops
-    once it has rebuilt what the backward needs), so the draws that follow
-    are those of an unwrapped call. `checkpoint`'s own `preserve_rng_state`
-    restores only the default generators. What else fn reads besides its
-    tensors, such as the `dropout_rows` context, fn must set up itself: the
-    recompute runs inside the backward."""
+    it, and after it to the state it had when the recompute began, so what
+    was drawn between the forward and the backward stays drawn and the
+    draws that follow are those of an unwrapped call. `checkpoint`'s own
+    `preserve_rng_state` restores only the default generators. What else
+    fn reads besides its tensors, such as the `dropout_rows` context, fn
+    must set up itself: the recompute runs inside the backward."""
     entry = [g.get_state() for g in generators]
-    end = []
+    ran = []
 
     def run():
-        if not end:
-            out = fn()
-            end.extend(g.get_state() for g in generators)
-            return out
+        if not ran:
+            ran.append(True)
+            return fn()
+        now = [g.get_state() for g in generators]
         for g, state in zip(generators, entry):
             g.set_state(state)
         try:
             return fn()
         finally:
-            for g, state in zip(generators, end):
+            for g, state in zip(generators, now):
                 g.set_state(state)
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)

@@ -10,7 +10,9 @@
   an HTTP server on a thread of its own, where `GET /trace?seconds=S` runs
   torch.profiler for S seconds, writes the trace into the server's
   `logdir` and answers with its path as JSON. One capture runs at a time;
-  another request meanwhile gets 409. `stop()` ends the server.
+  another request meanwhile gets 409. The server's `capturing` event is
+  set while a capture records, so code in the process can tell which of
+  its own work fell inside one. `stop()` ends the server.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ def trace(logdir: str) -> Iterator[None]:
 
 class ProfilerServer:
     """What `start_server` returns: the bound `port`, the `logdir` its
-    traces go to, and `stop()`."""
+    traces go to, the `capturing` event, and `stop()`."""
 
-    def __init__(self, port: int, logdir: str, host: str):
+    def __init__(self, port: int, logdir: str):
         self.logdir = logdir
+        self.capturing = threading.Event()
         self._busy = threading.Lock()
         self._count = 0
         server = self
@@ -83,7 +86,7 @@ class ProfilerServer:
             def log_message(self, fmt, *args):  # requests are not logged
                 pass
 
-        self._httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True,
                                         name="profiler-server")
@@ -96,7 +99,12 @@ class ProfilerServer:
         # operators unless told to record every thread's
         config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
         with profile(activities=_activities(), experimental_config=config) as prof:
-            time.sleep(seconds)
+            # set once the profiler records, cleared before it stops
+            self.capturing.set()
+            try:
+                time.sleep(seconds)
+            finally:
+                self.capturing.clear()
         prof.export_chrome_trace(path)
         return path
 
@@ -106,14 +114,13 @@ class ProfilerServer:
         self._thread.join()
 
 
-def start_server(port: int = 9999, logdir: Optional[str] = None,
-                 host: str = "127.0.0.1") -> ProfilerServer:
-    """Serve captures on `host`:`port` (0 picks a free port); traces go into
-    `logdir` (a new temporary directory by default)."""
+def start_server(port: int = 9999, logdir: Optional[str] = None) -> ProfilerServer:
+    """Serve captures on 127.0.0.1:`port` (0 picks a free port); traces go
+    into `logdir` (a new temporary directory by default)."""
     if logdir is None:
         logdir = tempfile.mkdtemp(prefix="profiles_")
     os.makedirs(logdir, exist_ok=True)
-    return ProfilerServer(port, logdir, host)
+    return ProfilerServer(port, logdir)
 
 
 class StepTimer:
