@@ -10,7 +10,12 @@ Counterpart of vcvits_tpu/infer.py:VoiceConverter.
   `SynthesizerSVC.voice_conversion` from the source speaker to the target,
   and write 48 kHz PCM_24.
 
-Inputs are padded to an alignment-unit boundary, as in JAX.
+Inputs are padded to an alignment-unit boundary, as in JAX. Each
+`convert_array` and `voice_conversion_array` call is a program span
+("vcvits.convert" or "vcvits.voice_conversion", with the converter's
+request number; utils/profiling.py) around the spans of its phases: the
+inputs to the card ("vcvits.convert.upload"), the model's own spans, and
+the valid samples back to the host ("vcvits.convert.download").
 `VoiceConverter.from_checkpoint` loads the generator of a training run
 (train/trainer.py) from its workdir. `quant_int8` (True: dynamic W8A8, "w8":
 weight-only) builds the generator with the int8 decoder, as JAX's clone
@@ -19,6 +24,7 @@ does, so every conversion decodes in that mode on the same weights.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +44,7 @@ from vcvits_tpu_torch.models.synthesizer import SynthesizerSVC
 from vcvits_tpu_torch.ops.stft_mel import spectrogram
 from vcvits_tpu_torch.utils.audio_io import read_wav, write_wav
 from vcvits_tpu_torch.utils.device import resolve_device
+from vcvits_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +66,7 @@ class VoiceConverter:
         self.gen.eval()
         self.device = next(self.gen.parameters()).device
         self.unit = alignment_unit(cfg.data)
+        self._requests = itertools.count()  # the request number of the spans
 
     @classmethod
     def from_params(cls, cfg: Config, g_params: Mapping, dtype=torch.float32, device="cuda",
@@ -115,17 +123,20 @@ class VoiceConverter:
         replaces the seeded normal draw."""
         dev = self.device
         true_len = true_len if true_len is not None else len(wav16k)
-        gen = torch.Generator(device=dev).manual_seed(rng_seed)
-        o, y_mask, _ = self.gen.infer(
-            torch.as_tensor(wav16k, dtype=torch.float32, device=dev)[None, :],
-            torch.tensor([true_len], dtype=torch.int32, device=dev),
-            torch.as_tensor(np.asarray(pitch), dtype=torch.int64, device=dev)[None, :],
-            torch.tensor([speaker_id], dtype=torch.int64, device=dev),
-            noise_scale=noise_scale, generator=gen,
-            eps=None if eps is None else torch.as_tensor(eps, device=dev))
-        # count in float32: a bf16 sum of more than 256 ones rounds
-        n_valid = int(y_mask[0].float().sum().item()) * self.cfg.data.hop_length
-        return o[0, :n_valid, 0].float().cpu().numpy()
+        with span("convert", request=next(self._requests)):
+            with span("convert.upload"):
+                gen = torch.Generator(device=dev).manual_seed(rng_seed)
+                wav = torch.as_tensor(wav16k, dtype=torch.float32, device=dev)[None, :]
+                lengths = torch.tensor([true_len], dtype=torch.int32, device=dev)
+                bins = torch.as_tensor(np.asarray(pitch), dtype=torch.int64, device=dev)[None, :]
+                sid = torch.tensor([speaker_id], dtype=torch.int64, device=dev)
+                eps = None if eps is None else torch.as_tensor(eps, device=dev)
+            o, y_mask, _ = self.gen.infer(wav, lengths, bins, sid, noise_scale=noise_scale,
+                                          generator=gen, eps=eps)
+            with span("convert.download"):
+                # count in float32: a bf16 sum of more than 256 ones rounds
+                n_valid = int(y_mask[0].float().sum().item()) * self.cfg.data.hop_length
+                return o[0, :n_valid, 0].float().cpu().numpy()
 
     def convert(self, source_audio: str, target_audio: str, speaker_id: int,
                 pitch_shift: int = 0, noise_scale: float = 1.0) -> np.ndarray:
@@ -165,17 +176,22 @@ class VoiceConverter:
         unit_y = self.unit * d.target_sampling_rate // d.source_sampling_rate
         true_len = len(wav48k)
         padded = int(np.ceil(max(true_len, 1) / unit_y) * unit_y)
-        wav = torch.as_tensor(np.pad(np.asarray(wav48k, np.float32), (0, padded - true_len)),
-                              device=dev)[None, :]
-        spec = spectrogram(wav, d.filter_length, d.hop_length, d.win_length)
-        gen = torch.Generator(device=dev).manual_seed(rng_seed)
-        o, y_mask, _ = self.gen.voice_conversion(
-            spec, torch.tensor([true_len // d.hop_length], dtype=torch.int32, device=dev),
-            torch.tensor([sid_src], dtype=torch.int64, device=dev),
-            torch.tensor([sid_tgt], dtype=torch.int64, device=dev), generator=gen,
-            eps=None if eps is None else torch.as_tensor(eps, device=dev))
-        n_valid = int(y_mask[0].float().sum().item()) * d.hop_length
-        return o[0, :n_valid, 0].float().cpu().numpy()
+        with span("voice_conversion", request=next(self._requests)):
+            with span("convert.upload"):
+                wav = torch.as_tensor(np.pad(np.asarray(wav48k, np.float32),
+                                             (0, padded - true_len)), device=dev)[None, :]
+                gen = torch.Generator(device=dev).manual_seed(rng_seed)
+                lengths = torch.tensor([true_len // d.hop_length], dtype=torch.int32, device=dev)
+                src = torch.tensor([sid_src], dtype=torch.int64, device=dev)
+                tgt = torch.tensor([sid_tgt], dtype=torch.int64, device=dev)
+                eps = None if eps is None else torch.as_tensor(eps, device=dev)
+            with span("spectrogram"):
+                spec = spectrogram(wav, d.filter_length, d.hop_length, d.win_length)
+            o, y_mask, _ = self.gen.voice_conversion(spec, lengths, src, tgt, generator=gen,
+                                                     eps=eps)
+            with span("convert.download"):
+                n_valid = int(y_mask[0].float().sum().item()) * d.hop_length
+                return o[0, :n_valid, 0].float().cpu().numpy()
 
     def voice_conversion(self, source_audio: str, target_audio: str, sid_src: int,
                          sid_tgt: int, rng_seed: int = 0) -> np.ndarray:

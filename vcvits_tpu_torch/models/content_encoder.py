@@ -5,7 +5,9 @@ Counterpart of vcvits_tpu/models/content_encoder.py: pad the 16 kHz wav by
 clipped pitch embedding, a relative-position transformer, then `proj`
 split into (m_p, logs_p). The frame mask is `wav_len // 320`, as in JAX.
 `hubert_features` (the train step's shared frozen features) skips the
-HuBERT forward; dropout acts only with deterministic=False.
+HuBERT forward; dropout acts only with deterministic=False. The program
+spans "vcvits.content.hubert" and "vcvits.content.prior"
+(utils/profiling.py) cover the two halves.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from vcvits_tpu_torch.models.attention import TransformerEncoder
 from vcvits_tpu_torch.models.hubert import HubertConfig, HubertModel
 from vcvits_tpu_torch.models.layers import Conv1d, Embedding, Linear
 from vcvits_tpu_torch.utils.masking import sequence_mask
+from vcvits_tpu_torch.utils.profiling import span
 
 HUBERT_PAD = 40  # (receptive_field - downsample) // 2 = (400-320)//2
 
@@ -48,19 +51,20 @@ class HubertContentEncoder(nn.Module):
 
         Returns (x_out, m_p, logs_p, x_mask) on the 50 Hz frame axis."""
         if hubert_features is None:
-            with torch.no_grad():
+            with span("content.hubert"), torch.no_grad():
                 feats = self.hubert(F.pad(x_wav, (HUBERT_PAD, HUBERT_PAD)))
         else:
             feats = hubert_features.detach()
-        h = self.hubert_proj(feats)
-        t50 = h.shape[1]
-        pitch = torch.clamp(x_pitch[:, :t50], 0, self.num_pitch - 1)
-        h = h + self.emb_pitch(pitch)
+        with span("content.prior"):
+            h = self.hubert_proj(feats)
+            t50 = h.shape[1]
+            pitch = torch.clamp(x_pitch[:, :t50], 0, self.num_pitch - 1)
+            h = h + self.emb_pitch(pitch)
 
-        frame_lengths = x_wav_lengths.to(torch.int64) // 320
-        x_mask = sequence_mask(frame_lengths, t50).to(h.dtype)
-        x_out = self.encoder(h * x_mask, x_mask, deterministic, generator)
-        stats = self.proj(x_out) * x_mask
-        m = stats[..., :self.out_channels]
-        logs = stats[..., self.out_channels:]
+            frame_lengths = x_wav_lengths.to(torch.int64) // 320
+            x_mask = sequence_mask(frame_lengths, t50).to(h.dtype)
+            x_out = self.encoder(h * x_mask, x_mask, deterministic, generator)
+            stats = self.proj(x_out) * x_mask
+            m = stats[..., :self.out_channels]
+            logs = stats[..., self.out_channels:]
         return x_out, m, logs, x_mask

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vcvits_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from vcvits_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -198,9 +199,11 @@ class HubertModel(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(c, dtype=dtype))
 
     def forward(self, wav: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        feats = self.feat_ln(self.feature_extractor(wav))
-        x = self.post_extract_proj(feats)
-        x = self.encoder_ln(x + self.pos_conv(x))
-        for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, frame_mask)
+        with span("hubert.features"):  # the conv extractor, its norm and projection
+            feats = self.feat_ln(self.feature_extractor(wav))
+            x = self.post_extract_proj(feats)
+        with span("hubert.layers"):    # the positional conv and the layers
+            x = self.encoder_ln(x + self.pos_conv(x))
+            for i in range(self.cfg.num_layers):
+                x = getattr(self, f"layer_{i}")(x, frame_mask)
         return x

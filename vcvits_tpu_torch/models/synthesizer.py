@@ -16,6 +16,9 @@ Counterpart of vcvits_tpu/models/synthesizer.py:SynthesizerSVC:
 
 On a CUDA device the kernels run with no flag that sends the card to the
 plain path. Random draws come from explicit generators, or are injected.
+`infer` and `voice_conversion` mark their phases as program spans
+(utils/profiling.py): "vcvits.prior.sample", "vcvits.posterior",
+"vcvits.flow.forward", "vcvits.flow.reverse", "vcvits.decoder".
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from vcvits_tpu_torch.models.layers import Embedding, init_weights
 from vcvits_tpu_torch.models.posterior import PosteriorEncoder
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import nearest_interp, rand_slice_segments, sequence_mask
+from vcvits_tpu_torch.utils.profiling import span
 
 
 # `infer`'s default output frames per 16 kHz source sample: 48 kHz frames of
@@ -163,23 +167,26 @@ class SynthesizerSVC(nn.Module):
         Returns (o [B, t_out*hop, 1], y_mask [B, t_out, 1], (z, z_p, m_p, logs_p)).
         """
         _, m_p, logs_p, _ = self.enc_p(x_wav, x_wav_lengths, x_pitch)
-        g = self._speaker(sid)
+        with span("prior.sample"):
+            g = self._speaker(sid)
 
-        t_out = int(round(x_wav.shape[1] * length_scale))
-        y_lengths = (x_wav_lengths.to(torch.float32) * length_scale).to(torch.int32)
-        y_mask = sequence_mask(y_lengths, t_out).to(m_p.dtype)
+            t_out = int(round(x_wav.shape[1] * length_scale))
+            y_lengths = (x_wav_lengths.to(torch.float32) * length_scale).to(torch.int32)
+            y_mask = sequence_mask(y_lengths, t_out).to(m_p.dtype)
 
-        m_p = nearest_interp(m_p, t_out)
-        logs_p = nearest_interp(logs_p, t_out)
-        if eps is None:
-            eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
-                              dtype=m_p.dtype)
-        z_p = m_p + eps.to(m_p.device, m_p.dtype) * torch.exp(logs_p) * noise_scale
-        z = self.flow.kernel_reverse(z_p, y_mask, g=g).to(z_p.dtype) * y_mask
-        if max_len is not None:
-            z = z[:, :max_len]
-            y_mask = y_mask[:, :max_len]
-        o = self.dec(z, g=g, fused_mrf=True)
+            m_p = nearest_interp(m_p, t_out)
+            logs_p = nearest_interp(logs_p, t_out)
+            if eps is None:
+                eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
+                                  dtype=m_p.dtype)
+            z_p = m_p + eps.to(m_p.device, m_p.dtype) * torch.exp(logs_p) * noise_scale
+        with span("flow.reverse"):
+            z = self.flow.kernel_reverse(z_p, y_mask, g=g).to(z_p.dtype) * y_mask
+            if max_len is not None:
+                z = z[:, :max_len]
+                y_mask = y_mask[:, :max_len]
+        with span("decoder"):
+            o = self.dec(z, g=g, fused_mrf=True)
         return o, y_mask, (z, z_p, m_p, logs_p)
 
     @torch.no_grad()
@@ -192,10 +199,14 @@ class SynthesizerSVC(nn.Module):
         Returns (o_hat [B, T_spec*hop, 1], y_mask, (z, z_p, z_hat))."""
         if self.emb_g is None:
             raise ValueError("voice_conversion needs speaker embeddings (n_speakers >= 1)")
-        g_src, g_tgt = self.emb_g(sid_src), self.emb_g(sid_tgt)
-        z, _, _, y_mask = self.enc_q(y_spec, y_spec_lengths, g=g_src, eps=eps,
-                                     generator=generator, fused_wn=True)
-        z_p = self.flow.kernel_forward(z, y_mask, g=g_src)
-        z_hat = self.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)
-        o_hat = self.dec(z_hat * y_mask, g=g_tgt, fused_mrf=True)
+        with span("posterior"):
+            g_src, g_tgt = self.emb_g(sid_src), self.emb_g(sid_tgt)
+            z, _, _, y_mask = self.enc_q(y_spec, y_spec_lengths, g=g_src, eps=eps,
+                                         generator=generator, fused_wn=True)
+        with span("flow.forward"):
+            z_p = self.flow.kernel_forward(z, y_mask, g=g_src)
+        with span("flow.reverse"):
+            z_hat = self.flow.kernel_reverse(z_p, y_mask, g=g_tgt).to(z_p.dtype)
+        with span("decoder"):
+            o_hat = self.dec(z_hat * y_mask, g=g_tgt, fused_mrf=True)
         return o_hat, y_mask, (z, z_p, z_hat)

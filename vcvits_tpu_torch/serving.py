@@ -19,7 +19,18 @@ Counterpart of vcvits_tpu/serving.py:
   resolver thread waits for that copy's CUDA event, slices every row to
   its valid length and resolves the futures while the dispatcher is
   already running the next batch;
-* p50/p95 latency and batch sizes are tracked (`stats`).
+* p50/p95 latency and batch sizes are tracked (`stats`), and so are each
+  request's wait in the queue (from `submit` to its batch's admission) and
+  the source samples each batch carried: valid (the requests' own) and
+  padded (the rest of rows x padded length).
+
+Program spans (utils/profiling.py), each with the batch's number: the
+dispatcher's "vcvits.serve.gather" (the wait for a head and the latency
+window), "vcvits.serve.pad" (the batch padded on the host) and
+"vcvits.serve.infer" (each replica's upload of its rows, its `infer`,
+whose model spans it encloses, the wire cast and the copy started); the
+resolver's "vcvits.serve.resolve_wait" (the copy's event) and
+"vcvits.serve.resolve" (the rows sliced and the futures resolved).
 
 Noise: a batch draws its eps from one `torch.Generator` on the device,
 seeded with the batch head's `rng_seed` (JAX keys the batch on the head
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import queue
 import threading
 import time
@@ -57,6 +69,7 @@ from vcvits_tpu_torch.infer import VoiceConverter
 from vcvits_tpu_torch.models.synthesizer import DEFAULT_LENGTH_SCALE
 from vcvits_tpu_torch.streaming import StreamingConverter
 from vcvits_tpu_torch.utils.device import resolve_device
+from vcvits_tpu_torch.utils.profiling import span
 
 HUBERT_DOWNSAMPLE = 320  # source samples per content frame (the pitch cadence)
 
@@ -147,6 +160,10 @@ class ServingDaemon:
         self._lock = threading.Lock()
         self._latencies: List[float] = []
         self._batch_sizes: List[int] = []
+        self._queue_waits: List[float] = []
+        self._valid_samples = 0
+        self._padded_samples = 0
+        self._batch_ids = itertools.count()
         self._closed = False
         # the resolver waits for each batch's device->host copy and resolves
         # its futures off the dispatcher thread, so the next batch is
@@ -185,8 +202,11 @@ class ServingDaemon:
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
             bs = np.asarray(self._batch_sizes, np.float64)
+            wait = np.asarray(self._queue_waits, np.float64)
+            samples = {"valid_samples": self._valid_samples,
+                       "padded_samples": self._padded_samples}
         if not len(lat):
-            return {"requests": 0}
+            return {"requests": 0, **samples}
         return {
             "requests": int(len(lat)),
             "batches": int(len(bs)),
@@ -194,12 +214,17 @@ class ServingDaemon:
             "latency_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 1),
             "latency_p95_ms": round(float(np.percentile(lat, 95)) * 1e3, 1),
             "latency_max_ms": round(float(lat.max()) * 1e3, 1),
+            "queue_wait_p50_ms": round(float(np.percentile(wait, 50)) * 1e3, 1),
+            "queue_wait_p95_ms": round(float(np.percentile(wait, 95)) * 1e3, 1),
+            **samples,
         }
 
     def reset_stats(self) -> None:
         with self._lock:
             self._latencies.clear()
             self._batch_sizes.clear()
+            self._queue_waits.clear()
+            self._valid_samples = self._padded_samples = 0
 
     def close(self, timeout: float = 30.0) -> None:
         if not self._closed:
@@ -371,69 +396,92 @@ class ServingDaemon:
             item = self._resolve_q.get()
             if item is None:
                 break
-            batch, parts = item
+            bid, batch, parts = item
             try:
-                for _, _, event in parts:
-                    if event is not None:
-                        event.synchronize()  # this batch's copies only, not later work
-                o_np = np.concatenate([o.numpy() for o, _, _ in parts])
-                nv = np.concatenate([n.numpy() for _, n, _ in parts])
-                t_done = time.perf_counter()
-                outs = []
-                for row in range(len(batch)):
-                    out = o_np[row, : nv[row]]
-                    if self.transfer == "i16":
-                        out = out.astype(np.float32) / 32767.0
-                    elif self.transfer == "mulaw":
-                        out = _mulaw_decode(out)
-                    else:  # f32 and f16; a copy, so no result holds the batch buffer
-                        out = out.astype(np.float32)
-                    outs.append(out)
-                # counted before any client sees its result, so stats() read
-                # after a result includes that result's batch
-                with self._lock:
-                    self._batch_sizes.append(len(batch))
-                    self._latencies.extend(t_done - r.t_submit for r in batch)
-                for r, out in zip(batch, outs):
-                    r.future.set_result(out)
+                with span("serve.resolve_wait", batch=bid):
+                    for _, _, event in parts:
+                        if event is not None:
+                            event.synchronize()  # this batch's copies only, not later work
+                with span("serve.resolve", batch=bid):
+                    self._resolve(batch, parts)
             except Exception as e:  # noqa: BLE001 - resolve the futures, keep serving
                 for r in batch:
                     if not r.future.done():
                         r.future.set_exception(e)
 
+    def _resolve(self, batch: List[_Request], parts: List[tuple]) -> None:
+        """Slice every row of a batch's copied audio to its valid length,
+        count the batch, and resolve its futures."""
+        o_np = np.concatenate([o.numpy() for o, _, _ in parts])
+        nv = np.concatenate([n.numpy() for _, n, _ in parts])
+        t_done = time.perf_counter()
+        outs = []
+        for row in range(len(batch)):
+            out = o_np[row, : nv[row]]
+            if self.transfer == "i16":
+                out = out.astype(np.float32) / 32767.0
+            elif self.transfer == "mulaw":
+                out = _mulaw_decode(out)
+            else:  # f32 and f16; a copy, so no result holds the batch buffer
+                out = out.astype(np.float32)
+            outs.append(out)
+        # counted before any client sees its result, so stats() read after a
+        # result includes that result's batch
+        with self._lock:
+            self._batch_sizes.append(len(batch))
+            self._latencies.extend(t_done - r.t_submit for r in batch)
+        for r, out in zip(batch, outs):
+            r.future.set_result(out)
+
+    def _pad(self, batch: List[_Request], bsz: int, t_admit: float):
+        """The batch's sources, pitches, lengths and speakers padded to bsz
+        rows of the longest source (host arrays; i16 sources on an i16 or
+        mu-law wire); counts its valid and padded samples and its requests'
+        queue waits."""
+        i16 = self.transfer in ("i16", "mulaw")
+        pad_len = max(len(r.wav16k) for r in batch)
+        wavs = np.zeros((bsz, pad_len), np.int16 if i16 else np.float32)
+        pitches = np.zeros((bsz, pad_len // HUBERT_DOWNSAMPLE), np.int64)
+        lens = np.zeros((bsz,), np.int32)
+        sids = np.zeros((bsz,), np.int64)
+        for row, r in enumerate(batch):
+            w = r.wav16k
+            if i16:
+                w = np.round(np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
+            wavs[row, : len(w)] = w
+            pitches[row, : len(r.pitch)] = r.pitch
+            lens[row] = r.true_len
+            sids[row] = r.speaker_id
+        lens[len(batch):] = 1  # batch-pad rows: minimal valid length
+        valid = sum(r.true_len for r in batch)
+        with self._lock:
+            self._valid_samples += valid
+            self._padded_samples += bsz * pad_len - valid
+            self._queue_waits.extend(t_admit - r.t_submit for r in batch)
+        return wavs, lens, pitches, sids
+
     def _loop(self) -> None:
         dev = self._replicas[0][1]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)  # this thread's launches and events on dev
-        i16 = self.transfer in ("i16", "mulaw")
         n_replicas = len(self._replicas)
         while True:
-            batch = self._gather()
+            bid = next(self._batch_ids)
+            with span("serve.gather", batch=bid):
+                batch = self._gather()
             if batch is None:
                 break
+            t_admit = time.perf_counter()
             try:
-                n = len(batch)
                 # a power of two >= the replica count splits evenly
-                bsz = max(_next_batch_size(n, self.max_batch), n_replicas)
-                pad_len = max(len(r.wav16k) for r in batch)
-                wavs = np.zeros((bsz, pad_len), np.int16 if i16 else np.float32)
-                pitches = np.zeros((bsz, pad_len // HUBERT_DOWNSAMPLE), np.int64)
-                lens = np.zeros((bsz,), np.int32)
-                sids = np.zeros((bsz,), np.int64)
-                for row, r in enumerate(batch):
-                    w = r.wav16k
-                    if i16:
-                        w = np.round(np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
-                    wavs[row, : len(w)] = w
-                    pitches[row, : len(r.pitch)] = r.pitch
-                    lens[row] = r.true_len
-                    sids[row] = r.speaker_id
-                lens[n:] = 1  # batch-pad rows: minimal valid length
-                parts = self._run_batch(wavs, lens, pitches, sids, batch[0].rng_seed,
-                                        batch[0].noise_scale)
+                bsz = max(_next_batch_size(len(batch), self.max_batch), n_replicas)
+                with span("serve.pad", batch=bid):
+                    arrays = self._pad(batch, bsz, t_admit)
+                with span("serve.infer", batch=bid):
+                    parts = self._run_batch(*arrays, batch[0].rng_seed, batch[0].noise_scale)
                 # hand off to the resolver: the copy overlaps the NEXT batch's
                 # gather and launches (at most 2 batches behind)
-                self._resolve_q.put((batch, parts))
+                self._resolve_q.put((bid, batch, parts))
             except Exception as e:  # noqa: BLE001 - resolve the futures, keep serving
                 for r in batch:
                     if not r.future.done():

@@ -44,6 +44,12 @@ number of real updates so far; the logged `learning_rate` is that of the
 mini-step count. On mini-steps 1 .. k-1 the parameters do not move, and
 the D half's recompute runs the unmoved generator.
 
+Each call is a program span "vcvits.train.step" (utils/profiling.py), with
+one span a section: "vcvits.train.features", "g_forward", "g_losses",
+"g_backward", "g_optimizer" (grad norm, clip, AdamW), "d_recompute",
+"d_forward", "d_backward", "d_optimizer" (`_Sections`, which also times
+them with CUDA events under `timings=`).
+
 Every random draw is explicit: `StepDraws` injects the posterior noise and
 the segment starts of either forward (tests inject JAX's), and what is not
 injected comes from the step's generators. The metrics dict has the JAX
@@ -95,6 +101,7 @@ from vcvits_tpu_torch.train.state import (
     trainable_parameters)
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import segment_starts, slice_segments
+from vcvits_tpu_torch.utils.profiling import span
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -178,22 +185,56 @@ def _grad_norm(params, sharded: Sequence = (), mesh: Optional[Mesh] = None) -> t
 
 
 class _Sections:
-    """CUDA events at the step's section boundaries when `out` is a dict
-    (and the step runs on the card); `done()` writes each section's device
-    ms into it. Nothing is recorded when `out` is None."""
+    """The step's sections, one after another: `begin(name, key)` ends the
+    open section and starts `name`. Each is a program span
+    "vcvits.train.<name>" (utils/profiling.py), inside "vcvits.train.step",
+    which the `with` block opens and closes. When `out` is a dict (and the
+    step runs on the card), CUDA events at the section boundaries give
+    each section's device ms, stream time with its gaps, added into
+    `out[key]` by `done()`."""
 
     def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
         self.out = out if device.type == "cuda" else None
         self.marks = []
-        self.mark("start")
+        self.open: list = []    # the open spans, outermost first
+        self.key: Optional[str] = None
+        self._mark("start")
 
-    def mark(self, name: str) -> None:
+    def __enter__(self) -> "_Sections":
+        self._push("train.step")
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        while self.open:  # on an exception too
+            self.open.pop().__exit__(None, None, None)
+        return False
+
+    def _push(self, name: str) -> None:
+        sp = span(name)
+        sp.__enter__()
+        self.open.append(sp)
+
+    def _mark(self, key: str) -> None:
         if self.out is not None:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.marks.append((name, ev))
+            self.marks.append((key, ev))
+
+    def _end(self) -> None:
+        if self.key is not None:
+            self._mark(self.key)
+            self.open.pop().__exit__(None, None, None)
+            self.key = None
+
+    def begin(self, name: str, key: str) -> None:
+        """End the open section; start section `name`, timed under `key`."""
+        self._end()
+        self._push("train." + name)
+        self.key = key
 
     def done(self) -> None:
+        """End the last section; add each section's device ms into `out`."""
+        self._end()
         if self.out is None:
             return
         self.marks[-1][1].synchronize()
@@ -473,14 +514,14 @@ class TrainStep(GANStep):
         this rank's rows). With `timings` (a dict) on the card, each
         section's device ms is added to it."""
         draws = draws or StepDraws()
-        sections = _Sections(timings, self.device)
-        # AdamW's schedule counts real updates, the logged rate mini-steps
-        self._set_lr(self.schedule(self.updates))
-        feats = self._features(batch)
-        sections.mark("features (smooth_source, HuBERT, K3)")
-        g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
-        d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
-        sections.done()
+        with _Sections(timings, self.device) as sections:
+            # AdamW's schedule counts real updates, the logged rate mini-steps
+            self._set_lr(self.schedule(self.updates))
+            sections.begin("features", "features (smooth_source, HuBERT, K3)")
+            feats = self._features(batch)
+            g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
+            d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
+            sections.done()
         metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
                    **g_metrics, **d_metrics}
         self._advance()
@@ -494,10 +535,11 @@ class TrainStep(GANStep):
         cfg, t = self.cfg, self.cfg.train
         x_wav, hub, y_spec, y_mel = feats
         self.disc.requires_grad_(False)
+        sections.begin("g_forward", "G forward")
         o, ids, _, y_mask, (_, z_p, m_p, logs_p, _, logs_q) = self._remat(
             lambda: self._gen_forward(batch, x_wav, hub, y_spec, draws.eps, draws.ids_str),
             draws=True)
-        sections.mark("G forward")
+        sections.begin("g_losses", "G losses (MPD + MSD forward, mel, KL)")
         y_seg = self._target_segment(batch, ids)
         (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self._remat(
             lambda: self.disc(y_seg, o))
@@ -512,14 +554,13 @@ class TrainStep(GANStep):
         loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask,
                           self._mask_sum if self.mesh.data > 1 else None) * t.c_kl
         loss_g = (loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_mel + loss_kl
-        sections.mark("G losses (MPD + MSD forward, mel, KL)")
+        sections.begin("g_backward", "G backward")
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
-        sections.mark("G backward")
+        sections.begin("g_optimizer", "G grad norm + AdamW")
         self.disc.requires_grad_(True)
         grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
-        sections.mark("G grad norm + AdamW")
         metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
                    "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
                    "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
@@ -534,13 +575,14 @@ class TrainStep(GANStep):
         or on the G step's `o` and `ids` -> metrics."""
         t = self.cfg.train
         x_wav, hub, y_spec, _ = feats
+        sections.begin("d_recompute", "D-step generator recompute")
         with torch.no_grad():
             if t.d_recompute_forward:
                 o2, ids2 = self._gen_forward(batch, x_wav, hub, y_spec, draws.eps2,
                                              draws.ids_str2)[:2]
             else:
                 o2, ids2 = o.detach(), ids
-        sections.mark("D-step generator recompute")
+        sections.begin("d_forward", "D forward + loss")
         y_seg2 = self._target_segment(batch, ids2)
         (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self._remat(lambda: self.disc(y_seg2, o2))
         loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
@@ -549,13 +591,12 @@ class TrainStep(GANStep):
         loss_p, loss_s = share(loss_p), share(loss_s)
         p_r, p_g, s_r, s_g = ([share(v) for v in terms] for terms in (p_r, p_g, s_r, s_g))
         loss_d = loss_p + loss_s
-        sections.mark("D forward + loss")
+        sections.begin("d_backward", "D backward")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
-        sections.mark("D backward")
+        sections.begin("d_optimizer", "D grad norm + AdamW")
         grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, t.grad_clip)
-        sections.mark("D grad norm + AdamW")
         metrics = {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d,
                    "loss/d/p": loss_p, "loss/d/s": loss_s}
         for name, terms in (("d_p_r", p_r), ("d_p_g", p_g), ("d_s_r", s_r), ("d_s_g", s_g)):

@@ -28,6 +28,11 @@ a signal or the `max_seconds` deadline (rank 0's clock) is agreed by all
 ranks at the step boundary, so no rank is left in a collective alone.
 Validation runs on every rank (the model group's collectives need them
 all) and rank 0 logs it.
+
+Program spans (utils/profiling.py) mark the blocks its history times:
+"vcvits.fit.loader_wait" (each wait for the next batch),
+"vcvits.fit.validate" and "vcvits.fit.checkpoint"; the step's own are
+train/step.py's.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from vcvits_tpu_torch.train.step import TrainStep
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.logging import TensorBoardLogger, mel_to_image
 from vcvits_tpu_torch.utils.memory import trim_host_memory
+from vcvits_tpu_torch.utils.profiling import span
 
 class NullLogger:
     """TensorBoardLogger's interface, writing nothing (the ranks but 0)."""
@@ -69,6 +75,18 @@ class NullLogger:
 
     def close(self) -> None:
         pass
+
+
+def _spanned(batches):
+    """The batches, each wait for the next one in a "fit.loader_wait" span."""
+    it = iter(batches)
+    while True:
+        with span("fit.loader_wait"):
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+        yield batch
 
 
 # steps between malloc_trim(0) calls in fit(): often enough to bound the
@@ -257,7 +275,7 @@ class Trainer:
                 batches = (train_loader.epoch_batches(epoch) if device_cached
                            else prefetch(train_loader.epoch_batches(epoch)))
                 t_wait = time.perf_counter()
-                for batch in batches:
+                for batch in _spanned(batches):
                     wait_s = time.perf_counter() - t_wait
                     if step_no is None:
                         step_no = self.resume_or_init()
@@ -288,11 +306,13 @@ class Trainer:
                               "run_s": time.perf_counter() - t0}
                     if val_loader is not None and step_no % cfg.train.eval_interval == 0:
                         t1 = time.perf_counter()
-                        self.validate(val_loader, step_no)
+                        with span("fit.validate", step=step_no):
+                            self.validate(val_loader, step_no)
                         record["validate_s"] = time.perf_counter() - t1
                     if step_no % cfg.train.checkpoint_interval == 0:
                         t1 = time.perf_counter()
-                        self.save(step_no)
+                        with span("fit.checkpoint", step=step_no):
+                            self.save(step_no)
                         record["checkpoint_s"] = time.perf_counter() - t1
                     if step_no % _TRIM_INTERVAL == 0:
                         trim_host_memory(collect=False)

@@ -36,8 +36,10 @@ Data parallelism only, as in JAX (a `Mesh` with model 1): each rank's
 batch is its rows of the global batch, every loss is the global batch's
 (the duration loss and the KL divide by the global mask sums), every
 rank draws the global batch's noise, segment starts and dropout masks
-and keeps its rows, and MAS runs per row. train/step.py's module
-docstring has the rest.
+and keeps its rows, and MAS runs per row. Each call is the program span
+"vcvits.train.step" with one span a section ("targets", "g_forward",
+"g_losses", "g_backward", "g_optimizer", "d_forward", "d_backward",
+"d_optimizer"). train/step.py's module docstring has the rest.
 """
 
 from __future__ import annotations
@@ -124,13 +126,13 @@ class TTSTrainStep(GANStep):
         """One step on a batch of padded tensors on the step's device. With
         `timings` (a dict) on the card, each section's device ms is added."""
         draws = draws or TTSStepDraws()
-        sections = _Sections(timings, self.device)
-        self._set_lr(self.schedule(self.updates))
-        targets = self._targets(batch)
-        sections.mark("targets (K3)")
-        g_metrics, o, ids = self._generator_step(batch, targets, draws, sections)
-        d_metrics = self._discriminator_step(batch, o, ids, sections)
-        sections.done()
+        with _Sections(timings, self.device) as sections:
+            self._set_lr(self.schedule(self.updates))
+            sections.begin("targets", "targets (K3)")
+            targets = self._targets(batch)
+            g_metrics, o, ids = self._generator_step(batch, targets, draws, sections)
+            d_metrics = self._discriminator_step(batch, o, ids, sections)
+            sections.done()
         metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
                    **g_metrics, **d_metrics}
         self._advance()
@@ -143,6 +145,8 @@ class TTSTrainStep(GANStep):
         hop = cfg.data.hop_length
         y_spec, y_mel, energy_tgt, pitch_tgt = targets
         self.disc.requires_grad_(False)
+        sections.begin("g_forward",
+                       "G forward (text encoder, posterior, flow, MAS, SDP, decoder)")
         b, y_lengths = y_spec.shape[0], batch["y_wav_lengths"] // hop
         # on a data mesh: this rank's rows of the global batch's draws, in
         # the model's order (posterior, SDP, segment starts)
@@ -158,7 +162,8 @@ class TTSTrainStep(GANStep):
                 deterministic=not self.dropout, eps=eps, e_q=e_q, ids_str=ids_str,
                 generator=self.generator, dropout_generator=self.dropout_generator,
                 mask_sum=mask_sum)
-        sections.mark("G forward (text encoder, posterior, flow, MAS, SDP, decoder)")
+        sections.begin("g_losses",
+                       "G losses (MPD + MSD forward, mel, KL, duration, pitch, energy)")
         y_seg = self._target_segment(batch, ids)
         (_, p_lg, p_fr, p_fg), (_, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
         share = self._share
@@ -180,14 +185,13 @@ class TTSTrainStep(GANStep):
                                        * ym32)) * C_ENERGY
         loss_g = ((loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_kl + loss_mel
                   + loss_dur + loss_pitch + loss_energy)
-        sections.mark("G losses (MPD + MSD forward, mel, KL, duration, pitch, energy)")
+        sections.begin("g_backward", "G backward")
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
-        sections.mark("G backward")
+        sections.begin("g_optimizer", "G grad norm + AdamW")
         self.disc.requires_grad_(True)
         grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
-        sections.mark("G grad norm + AdamW")
         metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
                    "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
                    "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
@@ -198,17 +202,17 @@ class TTSTrainStep(GANStep):
     def _discriminator_step(self, batch: Batch, o: torch.Tensor, ids: torch.Tensor,
                             sections: _Sections) -> Dict[str, torch.Tensor]:
         """The LS-GAN D update on the G step's output, detached."""
+        sections.begin("d_forward", "D forward + loss")
         y_seg = self._target_segment(batch, ids)
         (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg, o.detach())
         loss_p = self._share(discriminator_loss(p_lr, p_lg)[0])
         loss_s = self._share(discriminator_loss(s_lr, s_lg)[0])
         loss_d = loss_p + loss_s
-        sections.mark("D forward + loss")
+        sections.begin("d_backward", "D backward")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
-        sections.mark("D backward")
+        sections.begin("d_optimizer", "D grad norm + AdamW")
         grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, self.cfg.train.grad_clip)
-        sections.mark("D grad norm + AdamW")
         return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, "loss/d/p": loss_p,
                 "loss/d/s": loss_s}

@@ -1,5 +1,21 @@
 """Profiling hooks (the port's counterpart of vcvits_tpu/utils/profiling.py).
 
+* `span(name, **ids)`: a context manager that marks a phase of the program
+  on the profiler's timeline. While a profiler records (`trace`, a
+  `start_server` capture, `cli/train.py --profile`, or any
+  `torch.profiler.profile` in the process), it opens the range
+  "vcvits.<name>", whose keyword values are `ids` (a request's or a
+  batch's number, so that the spans of one share it; the profiler keeps
+  them where it records inputs). The range is recorded beside the kernels
+  on the profiler's own clock, so each device interval and each idle gap
+  can be put down to the span the host was in when it launched the work.
+  It is the profiler's fast range (`_RecordFunctionFast`), a function
+  range and not a user annotation: the profiler draws a user annotation
+  again on the device over the kernels launched directly inside it, and a
+  span of the program's nested in an annotation of its caller's (a
+  forward hook's `record_function`) would take those kernels from it.
+  While no profiler records, it checks one flag and opens nothing. There
+  is no setting: spans exist exactly when a profiler records.
 * `trace(logdir)`: a context manager that records the block with
   torch.profiler (CPU activity, and CUDA activity when a card is present)
   and writes it into `logdir` as a Chrome trace, `trace.json`, which
@@ -28,7 +44,22 @@ import urllib.parse
 from typing import Iterator, List, Optional
 
 import torch
+import torch.autograd.profiler as autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import ProfilerActivity, profile
+
+SPAN_PREFIX = "vcvits."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, **ids):
+    """The profiler range "vcvits.<name>" while a profiler records (`ids`
+    its keyword values), else a context that does nothing."""
+    # the module's flag is rebound when a profiler starts and stops: read
+    # it through the module each call
+    if not autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(SPAN_PREFIX + name, (), ids)
 
 
 def _activities() -> List[ProfilerActivity]:
