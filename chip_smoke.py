@@ -7,8 +7,9 @@
 2. Builds the CUDA kernels from vcvits_tpu_torch/csrc/ (one nvcc per
    source, all at once) and prints ptxas's register/spill report; counts
    the HMMA/HGMMA (tensor-core) instructions in the mrf and flow_coupling
-   libraries' SASS (cuobjdump -sass), and the IMMA (int8 tensor-core)
-   instructions in int8_conv's, and fails if one has none.
+   libraries' SASS (cuobjdump -sass), the IMMA (int8 tensor-core)
+   instructions in int8_conv's and the HGMMA (wgmma) in hubert_gemm's, and
+   fails if one has none.
 3. Kernel phases at the main path's shapes, each kernel against its plain
    PyTorch version on the card, TF32 off:
    * K2 (flow_coupling.cu) in its three modes, each 4 launches: the
@@ -27,6 +28,12 @@
      launches a stage; per stage the tile `plan` chose, the kernel's device
      time from torch.profiler beside the CUDA-event time, and the bound's
      share of each.
+   * hubert_gemm (G1): HuBERT XTRALARGE's five dense shapes (q/k/v as one
+     [3840, 1280] product, out_proj and fc2 with a residual, fc1 with GELU,
+     post_extract_proj) at 177 and 425 rows: error against a float64
+     product within 2x cuBLAS fp32's, and near the plain version; time,
+     device time, plain and library (F.linear, TF32 off) time and the
+     3xTF32 bound, each layer and a request's 193 launches summed.
    Each prints its time, the plain version's time and the least time the
    card could take (the larger of bytes / 3.35 TB/s and operations / peak:
    67 TFLOP/s float32 CUDA cores, 989 TFLOP/s bf16 tensor cores; K1's
@@ -554,7 +561,7 @@ def build_phase(_build):
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name, ops in (("mrf", ("HMMA", "HGMMA")), ("flow_coupling", ("HMMA", "HGMMA")),
-                      ("int8_conv", ("IMMA", "IGMMA"))):
+                      ("int8_conv", ("IMMA", "IGMMA")), ("hubert_gemm", ("HGMMA",))):
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
                               text=True, check=True, timeout=120).stdout.splitlines()
         found = {op: sum(f" {op}." in line for line in sass) for op in ops}
@@ -773,6 +780,107 @@ def mrf_phase(rng, dev, _build):
     return out
 
 
+# HuBERT's dense layers: (name, K, N, epilogue), each `layers` times a
+# request but post_extract_proj (once), and the rows they are timed at
+G1_LAYERS = (("q/k/v", 1280, 3840, "bias"), ("out_proj", 1280, 1280, "residual"),
+             ("fc1", 1280, 5120, "gelu"), ("fc2", 5120, 1280, "residual"),
+             ("post_extract_proj", 512, 1280, "bias"))
+G1_ROWS = (177, 425)  # a mean request (3.5 s) and one at the p95 (8.5 s)
+G1_BASE_LAYERS = (("q/k/v", 768, 2304, "bias"), ("out_proj", 768, 768, "residual"),
+                  ("fc1", 768, 3072, "gelu"), ("fc2", 3072, 768, "residual"),
+                  ("post_extract_proj", 512, 768, "bias"))
+# a 1 s source, a mean one, a 10 s one, and the daemon's batch of 16 x 10 s
+G1_BASE_ROWS = (50, 177, 500, 16 * 500)
+G1_SETS = (("xl", G1_LAYERS, 48, (50,) + G1_ROWS), ("base", G1_BASE_LAYERS, 12, G1_BASE_ROWS))
+
+
+def g1_bound_ms(m: int, n: int, k: int, epilogue: str, weight_bytes: int = 4):
+    """G1's least time for epilogue(x [m, k] . W [n, k]^T + b): 3xTF32's
+    three products at 495 TFLOP/s against the bytes the function needs, the
+    fp32 weight, x and y once and the residual where the epilogue reads one.
+    weight_bytes=8 counts the design's pre-split hi/lo weight instead."""
+    nbytes = weight_bytes * n * k + 4 * m * k + 4 * m * n * (2 if epilogue == "residual" else 1)
+    return bound_ms(3 * 2 * m * n * k, nbytes, TF32_FLOPS)
+
+
+def g1_phase(dev, _build):
+    """G1 (csrc/hubert_gemm.cu) at HuBERT XTRALARGE's and base's dense
+    layers, at the rows the conversion and serving paths give them (one
+    request of 1, 3.5, 8.5 or 10 s, and the daemon's 16 x 10 s batch
+    flattened): against its plain version and a float64 product, and timed
+    beside the plain version and the library's one fp32 F.linear with TF32
+    off (with its epilogue: the call chain the layer makes without G1).
+    Per request: the 4 layer products x layers and post_extract_proj once.
+    Returns {(set, rows): totals}."""
+    import torch.nn.functional as F
+
+    from vcvits_tpu_torch.ops import hubert_gemm
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, layers, depth, rows in G1_SETS:
+        for m in rows:
+            tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "library_device_ms": 0.0, "bound_ms": 0.0, "bound_ms_split": 0.0,
+                   "max_rel_err": 0.0, "max_rel_err_library": 0.0, "launches": 0}
+            for name, k, n, epi in layers:
+                x = torch.randn(m, k, device=dev, generator=gen)
+                w = torch.randn(n, k, device=dev, generator=gen) / k ** 0.5
+                b = torch.randn(n, device=dev, generator=gen) * 0.1
+                r = torch.randn(m, n, device=dev, generator=gen) if epi == "residual" else None
+                prep = hubert_gemm.prepare(w)
+                pair = hubert_gemm.Prepared(n, k, torch.stack(hubert_gemm.split(w)))
+
+                def library():
+                    y = F.linear(x, w, b)
+                    return F.gelu(y) if epi == "gelu" else y + r if epi == "residual" else y
+
+                kernel = lambda: hubert_gemm.dense(x, prep, b, epi, r)  # noqa: E731
+                got, y64 = kernel(), x.double() @ w.double().T + b.double()
+                y64 = (F.gelu(y64) if epi == "gelu" else y64 + r.double() if epi == "residual"
+                       else y64)
+                plain = hubert_gemm.plain(x, pair, b, epi, r)
+                torch.cuda.synchronize()
+                rel = ((got.double() - y64).norm() / y64.norm()).item()
+                rel_lib = ((library().double() - y64).norm() / y64.norm()).item()
+                vs_plain = ((got - plain).double().norm() / plain.double().norm()).item()
+                if not (rel <= 2 * rel_lib and vs_plain <= 4 * rel_lib):
+                    raise AssertionError(f"hubert_gemm {label} {name} M={m}: error {rel:.3e} "
+                                         f"against float64 (cuBLAS fp32 {rel_lib:.3e}), "
+                                         f"{vs_plain:.3e} against plain")
+                ms, launches = timed(kernel, _build, "hubert_gemm", reps=20)
+                device_ms = kernel_device_ms(kernel, "hubert_gemm")
+                plain_ms = cuda_ms(lambda: hubert_gemm.plain(x, pair, b, epi, r))
+                library_ms = cuda_ms(library, reps=20)
+                library_device_ms = device_time_ms(library, reps=20)
+                b_ms, b_by = g1_bound_ms(m, n, k, epi)
+                split_ms, _ = g1_bound_ms(m, n, k, epi, weight_bytes=8)
+                print(f"hubert_gemm {label} {name} [{m}, {k}] x [{n}, {k}] {epi}: "
+                      f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={library_ms:.4f} (device {library_device_ms:.4f}) "
+                      f"G1/library device={device_ms / library_device_ms:.3f} "
+                      f"bound_ms={b_ms:.4f} ({b_by}) bound share {b_ms / device_ms:.3f}, "
+                      f"with the split weight's bytes {split_ms:.4f}; "
+                      f"{hubert_gemm.plan(m, n, k, sms)} blocks; error {rel:.3e} (cuBLAS fp32 "
+                      f"{rel_lib:.3e}), against plain {vs_plain:.3e}")
+                times = 1 if name == "post_extract_proj" else depth
+                for key, v in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
+                               ("library_ms", library_ms),
+                               ("library_device_ms", library_device_ms), ("bound_ms", b_ms),
+                               ("bound_ms_split", split_ms), ("launches", launches)):
+                    tot[key] += times * v
+                tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+                tot["max_rel_err_library"] = max(tot["max_rel_err_library"], rel_lib)
+            print(f"hubert_gemm {label}: {m} rows through the {depth} layers "
+                  f"({int(tot['launches'])} launches): kernel_ms={tot['ms']:.3f} "
+                  f"device_ms={tot['device_ms']:.3f} plain_ms={tot['plain_ms']:.3f} "
+                  f"library_ms={tot['library_ms']:.3f} (device {tot['library_device_ms']:.3f}) "
+                  f"bound_ms={tot['bound_ms']:.3f} (split weight {tot['bound_ms_split']:.3f})")
+            out[label, m] = tot
+    return out
+
+
 def write_sources(tmp: str, n: int = 3, seconds: float = 10.0, sr: int = 22050):
     """Synthetic voiced sources: a gliding harmonic tone with vibrato and
     breath noise, one per speaker, from a fixed seed."""
@@ -858,6 +966,7 @@ def slice_phase(dev, _build, card: str):
     from vcvits_tpu_torch.config import load_config
     from vcvits_tpu_torch.dsp.resample import resample
     from vcvits_tpu_torch.infer import VoiceConverter
+    from vcvits_tpu_torch.models.synthesizer import hubert_config_for
     from vcvits_tpu_torch.ops.mrf import launches_per_stage
     from vcvits_tpu_torch.utils.audio_io import read_wav
 
@@ -866,6 +975,9 @@ def slice_phase(dev, _build, card: str):
     m = cfg.model
     per_req = {"mrf": len(m.upsample_rates) * launches_per_stage(m.resblock_dilation_sizes),
                "flow_coupling_reverse": 4}
+    # G1: 4 a HuBERT layer and post_extract_proj, fp32 alone (bf16 keeps F.linear)
+    g1_per_req = {torch.float32: 4 * hubert_config_for(m.hubert_channels).num_layers + 1,
+                  torch.bfloat16: 0}
     hop = cfg.data.hop_length
     ls = (cfg.data.target_sampling_rate / hop) / cfg.data.source_sampling_rate
     with tempfile.TemporaryDirectory() as tmp:
@@ -875,7 +987,7 @@ def slice_phase(dev, _build, card: str):
                 for i, (s, sid) in enumerate(zip(srcs, SPEAKERS))]
         vcs = {}
         _build.LAUNCHES.clear()
-        runs = 0
+        expected = {}  # each counted kernel's launches over both converters' requests
         for dtype in (torch.float32, torch.bfloat16):
             vc = VoiceConverter(cfg, dtype=dtype, device=dev, seed=0)
             vcs[dtype] = vc
@@ -884,7 +996,6 @@ def slice_phase(dev, _build, card: str):
             outs = vc.convert_many(jobs, collect_audio=True)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            runs += len(jobs)
             for (_, dst, _), out, true_len in zip(jobs, outs, true_lens):
                 y_len = int((torch.tensor([true_len], dtype=torch.float32) * ls)
                             .to(torch.int32).item())
@@ -893,7 +1004,9 @@ def slice_phase(dev, _build, card: str):
                     raise AssertionError(f"{dst}: {len(out)} samples, expected {y_len * hop}")
                 if not np.isfinite(out).all():
                     raise AssertionError(f"{dst}: non-finite output")
-            for name, n in per_req.items():
+            want = {**per_req, "hubert_gemm": g1_per_req[dtype]}
+            for name, n in want.items():
+                expected[name] = expected.get(name, 0) + n * len(jobs)
                 rose = _build.LAUNCHES[name] - before.get(name, 0)
                 if rose != n * len(jobs):
                     raise AssertionError(f"{name}: {rose} launches for {len(jobs)} requests, "
@@ -902,7 +1015,7 @@ def slice_phase(dev, _build, card: str):
             label = str(dtype)[6:]
             print(f"slice {label}: convert_many 3 x 10 s, {wall * 1e3 / len(jobs):.1f} ms per "
                   f"request incl. host prep, rtf={secs / wall:.2f}x real time on {card}; "
-                  f"launches { {k: _build.LAUNCHES[k] - before.get(k, 0) for k in per_req} }")
+                  f"launches { {k: _build.LAUNCHES[k] - before.get(k, 0) for k in want} }")
         counts = dict(_build.LAUNCHES)
         # device-side numbers after the counted run: one prepared request
         wav, true_len, pitch = vcs[torch.float32].prepare_source(srcs[0])
@@ -920,10 +1033,10 @@ def slice_phase(dev, _build, card: str):
             print(f"slice {label}: convert_array (prepared 10 s source) {per * 1e3:.1f} ms per "
                   f"request, rtf={true_len / 16000 / per:.2f}x real time on {card}")
             breakdown(vc, wav, pitch, label)
-    for name, n in per_req.items():
-        if counts.get(name, 0) != n * runs:
+    for name, n in expected.items():
+        if counts.get(name, 0) != n:
             raise AssertionError(f"{name}: launched {counts.get(name, 0)} times on the main "
-                                 f"path, expected {n * runs}")
+                                 f"path, expected {n}")
     return counts
 
 
@@ -4822,6 +4935,7 @@ def main() -> int:
     batch16 = batch_phase(rng, dev, _build)
     int8 = int8_kernel_phase(dev, _build)
     mas = mas_phase(rng, dev, _build, clock_lib)
+    g1 = g1_phase(dev, _build)
     paths = {"convert": slice_phase(dev, _build, card), "voice_conversion": path_a_phase(
         dev, _build, card)}
     sd = perturbed_state(load_config(CONFIG))
@@ -4995,6 +5109,21 @@ def main() -> int:
          "chain_floor_ms_tx600": long["chain_floor_ms"], "ms_tx3000": big["ms"],
          "device_ms_tx3000": big["device_ms"], "plain_ms_tx3000": big["plain_ms"],
          "bound_ms_tx3000": big["bound_ms"], "chain_floor_ms_tx3000": big["chain_floor_ms"]})
+    mean, long = (g1["xl", m] for m in G1_ROWS)
+    kernels.append(
+        {"name": "hubert_gemm", "route": "cuda", "source": "vcvits_tpu_torch/csrc/hubert_gemm.cu",
+         "replaces": "none: vcvits_tpu/models/hubert.py's flax Dense layers (XLA dots); no "
+                     "Pallas kernel",
+         "launches": counts.get("hubert_gemm", 0), "max_rel_err": mean["max_rel_err"],
+         "max_rel_err_library": mean["max_rel_err_library"], "ms": mean["ms"],
+         "device_ms": mean["device_ms"], "plain_ms": mean["plain_ms"],
+         "library_ms": mean["library_ms"], "library_device_ms": mean["library_device_ms"],
+         "bound_ms": mean["bound_ms"], "ms_425": long["ms"], "device_ms_425": long["device_ms"],
+         "plain_ms_425": long["plain_ms"], "library_ms_425": long["library_ms"],
+         "library_device_ms_425": long["library_device_ms"],
+         "bound_ms_425": long["bound_ms"],
+         "per": "one HuBERT XTRALARGE request of 177 frames (3.5 s), and of 425 (_425): 4 x 48 "
+                "layer products and post_extract_proj"})
     for entry in kernels:
         for key, errs in (("tts", held), ("base_json", held_base), ("remat", held_remat)):
             if entry["name"] in errs:

@@ -46,6 +46,13 @@ clusters of 1-3 blocks a row), on rows with no feasible path, empty rows
 and scores summing under -1e9. TTS `infer` on the card matches the CPU's plain path at
 noise 0 to 1e-3 absolute, with equal lengths, masks and alignment. The
 train step's source smoothing repeats itself bit for bit on the card.
+HuBERT's dense kernel (G1, 3xTF32 on wgmma) is held against a float64
+product: its error (||y - y64|| / ||y64||) within twice that of cuBLAS's
+fp32 F.linear with TF32 off, at every dense layer of HuBERT XTRALARGE and
+base (each with its epilogue) at 1-500 rows and a daemon batch of 16 x
+500 rows, bit-identical over two runs and near its plain version; a
+conversion launches it 193 times with XTRALARGE, 49 with base, and a bf16
+train step never.
 """
 
 import numpy as np
@@ -59,6 +66,7 @@ from vcvits_tpu_torch.ops.flow_coupling import (
     wn_segment, wn_segment_plain)
 from vcvits_tpu_torch.ops.flow_coupling import kernel_plan as flow_kernel_plan
 from vcvits_tpu_torch.ops.flow_coupling import plan as flow_plan
+from vcvits_tpu_torch.ops import hubert_gemm
 from vcvits_tpu_torch.ops.fused_gate import fused_add_tanh_sigmoid_multiply, fused_gate
 from vcvits_tpu_torch.ops.mrf import kernel_plan, launches_per_stage, mrf, mrf_plain, plan
 from vcvits_tpu_torch.ops.stft_mel import MEL_ONLY, SPEC_MEL, SPEC_ONLY
@@ -961,3 +969,145 @@ def test_smooth_source_repeats_itself_on_card(dev):
     for _ in range(20):
         assert torch.equal(smooth_source(x.to(dev)), first)
     np.testing.assert_allclose(first.cpu().numpy(), smooth_source(x).numpy(), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------- G1
+# HuBERT's dense layers: (K, N, epilogue) of each, XTRALARGE and base.
+G1_LAYERS = {"xl q/k/v": (1280, 3840, "bias"), "xl out_proj": (1280, 1280, "residual"),
+             "xl fc1": (1280, 5120, "gelu"), "xl fc2": (5120, 1280, "residual"),
+             "xl post_extract_proj": (512, 1280, "bias"), "base q/k/v": (768, 2304, "bias"),
+             "base out_proj": (768, 768, "residual"), "base fc1": (768, 3072, "gelu"),
+             "base fc2": (3072, 768, "residual"), "base post_extract_proj": (512, 768, "bias")}
+G1_ROWS = [1, 50, 63, 64, 65, 177, 425, 500]
+
+
+def _g1_case(dev, layer, m, seed):
+    k, n, epi = G1_LAYERS[layer]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g)
+    w = torch.randn(n, k, device=dev, generator=g) / k ** 0.5
+    b = torch.randn(n, device=dev, generator=g) * 0.1
+    r = torch.randn(m, n, device=dev, generator=g) if epi == "residual" else None
+    y64 = x.double() @ w.double().T + b.double()
+    y64 = torch.nn.functional.gelu(y64) if epi == "gelu" else y64 + r.double() \
+        if epi == "residual" else y64
+    lib = torch.nn.functional.linear(x, w, b)  # cuBLAS fp32, TF32 off (the fixture)
+    lib = torch.nn.functional.gelu(lib) if epi == "gelu" else lib + r if epi == "residual" \
+        else lib
+    return x, w, b, r, epi, y64, lib
+
+
+def _g1_err(y, y64):
+    return ((y.double() - y64).norm() / y64.norm()).item()
+
+
+def _g1_check(x, w, b, r, epi, y64, lib):
+    prep = hubert_gemm.prepare(w)
+    before = _build.LAUNCHES["hubert_gemm"]
+    got = hubert_gemm.dense(x, prep, b, epi, r)
+    again = hubert_gemm.dense(x, prep, b, epi, r)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hubert_gemm"] - before == 2
+    assert torch.equal(got, again)  # a fixed order of adds, no float atomics
+    err, lib_err = _g1_err(got, y64), _g1_err(lib, y64)
+    assert err <= 2 * lib_err, (err, lib_err)
+    plain = hubert_gemm.plain(x, hubert_gemm.Prepared(w.shape[0], w.shape[1],
+                                                      torch.stack(hubert_gemm.split(w))),
+                              b, epi, r)
+    assert _g1_err(got, plain.double()) <= 4 * lib_err
+
+
+@pytest.mark.parametrize("m", G1_ROWS)
+@pytest.mark.parametrize("layer", list(G1_LAYERS))
+def test_hubert_gemm_within_twice_cublas(dev, layer, m):
+    _g1_check(*_g1_case(dev, layer, m, seed=m))
+
+
+@pytest.mark.parametrize("layer", [name for name in G1_LAYERS if name.startswith("base")])
+def test_hubert_gemm_at_the_daemon_batch(dev, layer):
+    """HuBERT base over a daemon batch of 16 padded 10 s sources: 16 x 500
+    rows flattened."""
+    _g1_check(*_g1_case(dev, layer, 16 * 500, seed=16))
+
+
+def test_hubert_gemm_refuses_what_it_does_not_take(dev):
+    w = torch.randn(256, 128, device=dev)
+    prep = hubert_gemm.prepare(w)
+    x = torch.randn(5, 128, device=dev)
+    with pytest.raises(TypeError):
+        hubert_gemm.dense(x.to(torch.bfloat16), prep)
+    with pytest.raises(ValueError):
+        hubert_gemm.prepare(torch.randn(200, 128, device=dev))  # N not a multiple of 128
+    with pytest.raises(ValueError):
+        hubert_gemm.dense(x, hubert_gemm.prepare(w.cpu()))  # the weight on another device
+    with pytest.raises(ValueError):
+        hubert_gemm.dense(x.requires_grad_(True), prep)  # no backward
+    assert hubert_gemm.dense(x[:0].detach(), prep).shape == (0, 256)
+
+
+def _source(seconds, seed):
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    wav = (0.3 * np.sin(2 * np.pi * 180 * np.arange(n) / 16000)
+           + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    return wav, rng.integers(1, 256, n // 320)
+
+
+@pytest.mark.parametrize("config,launches", [("configs/base.json", 4 * 48 + 1),
+                                             ("configs/48k_base.json", 4 * 12 + 1)])
+def test_hubert_gemm_launches_a_conversion(dev, config, launches):
+    """convert_array in fp32 on the shipped configs: HuBERT XTRALARGE (48
+    layers) and base (12) launch G1 four times a layer and once for
+    post_extract_proj, and the output matches the same converter with G1's
+    rule turned off (F.linear) closely."""
+    from vcvits_tpu_torch.config import load_config
+    from vcvits_tpu_torch.infer import VoiceConverter
+
+    vc = VoiceConverter(load_config(config), device=dev, seed=0)
+    wav, pitch = _source(3.0, 0)
+    before = _build.LAUNCHES["hubert_gemm"]
+    got = vc.convert_array(wav, pitch, 3, noise_scale=0.0)
+    assert _build.LAUNCHES["hubert_gemm"] - before == launches
+    on_card = hubert_gemm.on_card
+    try:
+        hubert_gemm.on_card = lambda x: False
+        want = vc.convert_array(wav, pitch, 3, noise_scale=0.0)
+    finally:
+        hubert_gemm.on_card = on_card
+    assert _build.LAUNCHES["hubert_gemm"] - before == launches
+    assert got.shape == want.shape and np.abs(want).mean() > 1e-4
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+def test_hubert_gemm_stays_out_of_a_bf16_train_step(dev):
+    """A tiny TrainStep whose HuBERT has widths G1 takes: bf16 launches it
+    never, fp32 (the frozen HuBERT under no_grad) 4 x 1 layer + 1 times."""
+    from vcvits_tpu_torch.config import Config
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+    from vcvits_tpu_torch.train.step import StepDraws, TrainStep
+
+    raw = {**TINY_TRAIN, "model": {**TINY_TRAIN["model"], "hubert_channels": 128}}
+    cfg = Config.from_dict(raw)
+    hub = HubertConfig(conv_layers=((32, 10, 5), (32, 8, 8), (32, 8, 8)), hidden_size=128,
+                       num_layers=1, num_heads=2, intermediate_size=256, pos_conv_kernel=8,
+                       pos_conv_groups=2)
+    g = np.random.default_rng(0)
+    tx, ty = 5120, 15360
+    batch = {"x_wav": torch.tensor(g.standard_normal((2, tx)) * 0.1, dtype=torch.float32),
+             "x_wav_lengths": torch.tensor([tx, tx - 640], dtype=torch.int32),
+             "x_pitch": torch.tensor(g.integers(1, 64, (2, tx // 320))),
+             "y_wav": torch.tensor(g.standard_normal((2, ty)) * 0.1, dtype=torch.float32),
+             "y_wav_lengths": torch.tensor([ty, ty - 2048], dtype=torch.int32),
+             "sid": torch.tensor([1, 5])}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    draws = StepDraws(torch.tensor(g.standard_normal((2, 30, 8)), dtype=torch.float32).to(dev),
+                      torch.tensor([3, 20]).to(dev),
+                      torch.tensor(g.standard_normal((2, 30, 8)), dtype=torch.float32).to(dev),
+                      torch.tensor([0, 17]).to(dev))
+    for dtype, launches in ((torch.bfloat16, 0), (torch.float32, 5)):
+        step = TrainStep(cfg, device=dev, hubert_cfg=hub, seed=1, dtype=dtype)
+        before = _build.LAUNCHES["hubert_gemm"]
+        step(batch, draws)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["hubert_gemm"] - before == launches, dtype
+

@@ -4,10 +4,13 @@
     python3 tools/torch_smoke_phases.py base_json,multi_gpu,torchrun
     python3 tools/torch_smoke_phases.py remat,profiling,convergence,surface
     python3 tools/torch_smoke_phases.py remat_layouts,profiling
+    python3 tools/torch_smoke_phases.py g1,slice
 
 Builds the kernels, then runs the named phases (any of base_json,
 multi_gpu, torchrun, remat, profiling, convergence, surface, or
-remat_layouts: multi_gpu's (vi), remat under the layouts, alone) with
+remat_layouts: multi_gpu's (vi), remat under the layouts, alone, g1:
+HuBERT's dense kernel at XTRALARGE's and base's layers, or slice: the
+fp32 and bf16 conversion of 48k_base.json and its launch counts) with
 chip_smoke.py's own functions, each with its seconds. base_json and remat
 print each kernel's max |err| on the path's inputs.
 It prints no kernels line and no result line: chip_smoke.py stays the one
@@ -61,6 +64,10 @@ def main() -> int:
             chip_smoke.profiling_phase(dev, _build, card)
         elif name == "convergence":
             chip_smoke.convergence_phase(dev, _build, card)
+        elif name == "g1":
+            chip_smoke.g1_phase(dev, _build)
+        elif name == "slice":
+            chip_smoke.slice_phase(dev, _build, card)
         elif name == "surface":
             chip_smoke.surface_phase(dev, card)
         elif name == "torchrun":

@@ -230,12 +230,14 @@ class FoldCache(nn.Module):
     runs `build` once and reuses its result until a parameter changes: the
     key is each parameter's storage and in-place write count, which
     load_state_dict and every in-place edit move, and .to() and the other
-    conversions drop the cache."""
+    conversions drop the cache. `params` narrows the key to the tensors
+    `build` reads (default: every parameter)."""
 
     _folded = None
 
-    def folded(self, build):
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+    def folded(self, build, params=None):
+        key = tuple((p.data_ptr(), p._version)
+                    for p in (self.parameters() if params is None else params))
         if self._folded is None or self._folded[0] != key:
             with torch.no_grad():
                 self._folded = (key, build())

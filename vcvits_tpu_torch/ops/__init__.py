@@ -8,6 +8,8 @@
   csrc/int8_conv.cu (no Pallas counterpart: JAX runs an XLA int8 conv).
 * `monotonic_align` (M1): the TTS path's monotonic alignment search,
   csrc/monotonic_align.cu (no Pallas counterpart: JAX runs two lax.scans).
+* `hubert_gemm` (G1): HuBERT's dense layers in fp32 as 3xTF32 on wgmma,
+  csrc/hubert_gemm.cu (no Pallas counterpart: JAX runs flax Dense layers).
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
 CUDA tensor; `_build.LAUNCHES` counts the kernel launches.

@@ -44,7 +44,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("mrf", "flow_coupling", "stft_mel", "fused_gate", "int8_conv",
-                  "monotonic_align")
+                  "monotonic_align", "hubert_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
