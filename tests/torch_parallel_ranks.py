@@ -299,3 +299,20 @@ def global_draws(cfg_dict, b, t_spec, seed=11):
             "ids_str": g.integers(0, t_spec - seg + 1, (b,)).astype(np.int32),
             "eps2": g.standard_normal((b, t_spec, inter)).astype(np.float32),
             "ids_str2": g.integers(0, t_spec - seg + 1, (b,)).astype(np.int32)}
+
+
+def grad_sum_spans(rank, n):
+    """The program spans `Mesh.sum_grads` opens under a profiler on an
+    n-rank data group, with the gradient it leaves (rank 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vcvits_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, 1)
+    p = torch.nn.Parameter(torch.zeros(3))
+    p.grad = torch.full((3,), float(rank + 1))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mesh.sum_grads([p])
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("vcvits.")]
+    return (names, p.grad.tolist()) if rank == 0 else None

@@ -29,14 +29,28 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--bf16", action="store_true",
                    help="compute in bfloat16 (also selected by \"fp16_run\": true)")
-    p.add_argument("--cleaners", nargs="+", default=["english_cleaners"])
+    p.add_argument("--cleaners", nargs="+", default=None,
+                   help="text cleaners (default: the config's data.text_cleaners, none where "
+                        "its data.cleaned_text is true, else english_cleaners)")
     p.add_argument("--add-blank", action="store_true",
-                   help="intersperse blank ids between symbols (VITS's data.add_blank)")
+                   help="intersperse blank ids between symbols (also selected by the config's "
+                        "data.add_blank, VITS's key)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the card), or cpu for the plain PyTorch path")
     p.add_argument("--distributed", action="store_true",
                    help="join torchrun's process group (data parallelism, one process per GPU)")
     return p.parse_args(argv)
+
+
+def text_cleaners(given: Optional[List[str]], data) -> List[str]:
+    """The cleaners asked for, else the config's: none for a filelist of
+    cleaned text (VITS's data.cleaned_text), its data.text_cleaners, else
+    english_cleaners."""
+    if given is not None:
+        return list(given)
+    if data.cleaned_text:
+        return []
+    return list(data.text_cleaners or ["english_cleaners"])
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -58,7 +72,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     trainer = TTSTrainer(cfg, workdir=args.workdir, device=local_device(args.device),
-                         dtype=dtype, cleaners=args.cleaners, add_blank=args.add_blank)
+                         dtype=dtype, cleaners=text_cleaners(args.cleaners, cfg.data),
+                         add_blank=args.add_blank or cfg.data.add_blank)
     trainer.fit(args.filelist, max_steps=args.max_steps)
     if dist.is_initialized():
         dist.destroy_process_group()

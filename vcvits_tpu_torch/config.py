@@ -5,6 +5,16 @@ The same frozen dataclasses and the same JSON schema as the JAX package, so
 Unknown JSON keys are rejected loudly instead of silently absorbed. The
 training-only fields keep the JAX package's comments; the port's inference
 path reads `data` and `model` only.
+
+The port also loads VITS's own configs as published (`configs/vctk_base.json`,
+github.com/jaywalnut310/vits): `train.epochs`, and `data.sampling_rate`
+(the target rate), `add_blank`, `text_cleaners` and `cleaned_text`, which
+the TTS CLI reads; and it takes the keys that select VITS's training
+architecture, `model.msd_scales` (0: the multi-period discriminator
+alone), `model.variance_predictors` (false: no pitch and energy heads)
+and `model.n_vocab`. These port-only fields are left out of `to_dict`
+while they hold their defaults, so a vcvits config's dict is the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -20,6 +30,10 @@ def _freeze(value: Any) -> Any:
     if isinstance(value, list):
         return tuple(_freeze(v) for v in value)
     return value
+
+
+# marks a field the JAX package's config does not have
+PORT_ONLY = {"port_only": True}
 
 
 def _from_dict(cls, data: Dict[str, Any]):
@@ -122,6 +136,8 @@ class TrainConfig:
     # per-epoch augmentation needs fresh host data; "on"/"off" force it.
     device_data_cache: str = "auto"
     device_cache_max_bytes: int = 512 * 1024 * 1024
+    # VITS's name for max_epochs (its train_ms.py loops `epochs` times)
+    epochs: Optional[int] = field(default=None, metadata=PORT_ONLY)
 
 
 @dataclass(frozen=True)
@@ -149,6 +165,14 @@ class DataConfig:
     max_source_seconds: float = 10.0
     length_buckets: Tuple[float, ...] = (2.0, 4.0, 6.0, 8.0, 10.0)
     cache_dir: str = "cache"
+    # VITS's data keys: its one sampling rate is the target rate (from_dict
+    # copies it there); blank ids between symbols, the text cleaners, and
+    # whether the filelist's text is cleaned already (the TTS CLI's
+    # defaults)
+    sampling_rate: Optional[int] = field(default=None, metadata=PORT_ONLY)
+    add_blank: bool = field(default=False, metadata=PORT_ONLY)
+    text_cleaners: Optional[Tuple[str, ...]] = field(default=None, metadata=PORT_ONLY)
+    cleaned_text: bool = field(default=False, metadata=PORT_ONLY)
 
     @property
     def spec_channels(self) -> int:
@@ -191,6 +215,14 @@ class ModelConfig:
     # Not a JSON key in the reference; default OFF — enable per run with
     # --int8-decoder on the infer/serve CLIs.
     dec_quant_int8: bool = False
+    # The training architecture: the multi-scale discriminator's heads
+    # beside the multi-period one (0 leaves it out, as VITS has it), the
+    # TTS model's pitch and energy predictors and their losses (VITS has
+    # none), and the text encoder's vocabulary (None: the port's symbol
+    # set).
+    msd_scales: int = field(default=5, metadata=PORT_ONLY)
+    variance_predictors: bool = field(default=True, metadata=PORT_ONLY)
+    n_vocab: Optional[int] = field(default=None, metadata=PORT_ONLY)
 
 
 @dataclass(frozen=True)
@@ -211,6 +243,11 @@ class Config:
         for dup in ("num_pitch", "hubert_channels"):
             if dup in model_blk and dup not in data_blk:
                 data_blk[dup] = model_blk[dup]
+        sr = data_blk.get("sampling_rate")
+        if sr is not None:
+            if data_blk.setdefault("target_sampling_rate", sr) != sr:
+                raise ValueError(f"data.sampling_rate ({sr}) != data.target_sampling_rate "
+                                 f"({data_blk['target_sampling_rate']})")
         cfg = Config(
             trainer=_from_dict(TrainerConfig, data.get("trainer", {})),
             train=_from_dict(TrainConfig, data.get("train", {})),
@@ -226,7 +263,14 @@ class Config:
         return cfg
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """Every field, but a port-only one at its default."""
+        out = dataclasses.asdict(self)
+        for blk in dataclasses.fields(self):
+            value = getattr(self, blk.name)
+            for f in dataclasses.fields(value):
+                if f.metadata.get("port_only") and getattr(value, f.name) == f.default:
+                    del out[blk.name][f.name]
+        return out
 
 
 def load_config(path: str) -> Config:

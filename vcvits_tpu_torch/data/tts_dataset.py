@@ -3,13 +3,15 @@ port's copy of vcvits_tpu/data/tts_dataset.py).
 
 Filelist lines are "path|sid|text" ("path|text": speaker 0). Per item: the
 wav resampled to the target rate, and a frame-level F0 target (pYIN at the
-spectrogram hop, for the pitch predictor), each cached as `<md5 of its
+spectrogram hop, for the pitch predictor; left out with `pitch=False`, for
+a model without one), each cached as `<md5 of its
 key>.npy` under the JAX package's keys, so either package reads the
 other's cache; the text through the port's text front end. The resampler
 and pYIN's Viterbi run in the port's C++ host library (its arrays equal
 the NumPy versions').
 `collate_tts` pads a batch to the static (text bucket, audio bucket)
-shapes, cropping a longer clip at a random hop-aligned offset.
+shapes, cropping a longer clip at a random hop-aligned offset; its batch
+has "pitch" where the items have it.
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ def load_tts_filelist(path: str) -> List[Tuple[str, int, str]]:
 class TTSDataset:
     def __init__(self, filelist_path: str, cfg: DataConfig,
                  cleaners: Sequence[str] = ("english_cleaners",), cache_dir: Optional[str] = None,
-                 shuffle_seed: Optional[int] = 1234, add_blank: bool = False):
+                 shuffle_seed: Optional[int] = 1234, add_blank: bool = False,
+                 pitch: bool = True):
         self.items = load_tts_filelist(filelist_path)
         self.cfg = cfg
         self.cleaners = tuple(cleaners)
         self.add_blank = add_blank  # blank id 0 between symbols (VITS's data.add_blank)
+        self.pitch = pitch
         self.cache_dir = cache_dir or cfg.cache_dir
         os.makedirs(self.cache_dir, exist_ok=True)
         if shuffle_seed is not None:
@@ -74,15 +78,16 @@ class TTSDataset:
             return resample(wav, in_sr, sr)
 
         y_wav = self._cached(f"{path}_{sr}", load)
-        pitch = self._cached(
-            f"{path}_ttsf0_{cfg.filter_length}_{cfg.win_length}_{sr}_{cfg.hop_length}",
-            lambda: estimate_pitch(y_wav, sr=sr, n_fft=cfg.filter_length,
-                                   win_length=cfg.win_length, hop_length=cfg.hop_length))
         ids = text_to_sequence(text, self.cleaners)
         if self.add_blank:
             ids = intersperse(ids, 0)
-        return {"sid": np.int64(sid), "text": np.asarray(ids, np.int64), "y_wav": y_wav,
-                "pitch": pitch}
+        item = {"sid": np.int64(sid), "text": np.asarray(ids, np.int64), "y_wav": y_wav}
+        if self.pitch:
+            item["pitch"] = self._cached(
+                f"{path}_ttsf0_{cfg.filter_length}_{cfg.win_length}_{sr}_{cfg.hop_length}",
+                lambda: estimate_pitch(y_wav, sr=sr, n_fft=cfg.filter_length,
+                                       win_length=cfg.win_length, hop_length=cfg.hop_length))
+        return item
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         return self.get_item(index)
@@ -106,16 +111,18 @@ def collate_tts(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, text_bu
     text_lens = np.zeros((b,), np.int32)
     y = np.zeros((b, audio_bucket), np.float32)
     y_lens = np.zeros((b,), np.int32)
+    with_pitch = "pitch" in items[0]
     pitch = np.zeros((b, t_frames), np.float32)
     sid = np.zeros((b,), np.int32)
     for j, item in enumerate(items):
-        yw, pw = item["y_wav"], item["pitch"]
+        yw, pw = item["y_wav"], item.get("pitch")
         n = len(yw)
         if n > audio_bucket:
             max_off = (n - audio_bucket) // hop
             off = rng.randint(0, max_off) * hop if max_off > 0 else 0
             yw = yw[off:off + audio_bucket]
-            pw = pw[off // hop:][:t_frames]
+            if with_pitch:
+                pw = pw[off // hop:][:t_frames]
             n = audio_bucket
         if not lo <= j < hi:
             continue
@@ -126,8 +133,12 @@ def collate_tts(items: Sequence[Dict[str, np.ndarray]], cfg: DataConfig, text_bu
         n = (n // hop) * hop
         y[i, :n] = yw[:n]
         y_lens[i] = n
-        n_p = min(len(pw), t_frames)
-        pitch[i, :n_p] = pw[:n_p]
+        if with_pitch:
+            n_p = min(len(pw), t_frames)
+            pitch[i, :n_p] = pw[:n_p]
         sid[i] = int(item["sid"])
-    return {"text": text, "text_lengths": text_lens, "y_wav": y, "y_wav_lengths": y_lens,
-            "pitch": pitch, "sid": sid}
+    batch = {"text": text, "text_lengths": text_lens, "y_wav": y, "y_wav_lengths": y_lens}
+    if with_pitch:
+        batch["pitch"] = pitch
+    batch["sid"] = sid
+    return batch

@@ -16,7 +16,7 @@ and, as in JAX, not in the train step.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,10 +205,12 @@ class PitchDiscriminator(nn.Module):
 
 
 class Discriminators(nn.Module):
-    """The train step's discriminator pair, `mpd` and `msd` (the JAX
-    package's d_params tree {"mpd": ..., "msd": ...})."""
+    """The train step's discriminators, `mpd` and `msd` (the JAX package's
+    d_params tree {"mpd": ..., "msd": ...}); `msd` is None where the
+    configuration has no multi-scale heads (`model.msd_scales` 0, VITS's
+    set: the multi-period discriminator alone)."""
 
-    def __init__(self, mpd: MultiPeriodDiscriminator, msd: MultiScaleDiscriminator):
+    def __init__(self, mpd: MultiPeriodDiscriminator, msd: Optional[MultiScaleDiscriminator]):
         super().__init__()
         self.mpd = mpd
         self.msd = msd
@@ -218,9 +220,12 @@ class Discriminators(nn.Module):
         t = cfg.train
         flags = dict(im2col_first=t.disc_im2col, grouped_pack=t.disc_grouped_pack,
                      time_fold=t.disc_time_fold, dtype=dtype)
+        n = cfg.model.msd_scales
         return cls(MultiPeriodDiscriminator(cfg.model.multi_period_discriminator_periods,
                                             **flags),
-                   MultiScaleDiscriminator(**flags))
+                   MultiScaleDiscriminator(n, **flags) if n > 0 else None)
 
-    def forward(self, y: torch.Tensor, y_hat: torch.Tensor) -> Tuple[Outputs, Outputs]:
-        return self.mpd(y, y_hat), self.msd(y, y_hat)
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor
+                ) -> Tuple[Outputs, Optional[Outputs]]:
+        """(the MPD's outputs, the MSD's or None)."""
+        return self.mpd(y, y_hat), None if self.msd is None else self.msd(y, y_hat)

@@ -8,10 +8,14 @@ Counterpart of vcvits_tpu/models/synthesizer_tts.py:SynthesizerTTS:
   (`neg_cent`, float32, no gradient; plain matmuls, which JAX leaves to
   XLA), monotonic alignment search on it (ops/monotonic_align.py, kernel
   M1 on the card), the stochastic duration predictor's NLL of the aligned
-  durations over the mask's sum, the pitch and energy predictions from z,
+  durations over the mask's sum, the pitch and energy predictions from z
+  (`variance_predictors`: vcvits's TTS variant has them, VITS has not),
   the prior expanded to the frames by the alignment, and a random segment
-  of z through the decoder's differentiable path (fused_mrf=False).
-* `infer`: durations sampled by the SDP (exp, mask, `length_scale`, ceil),
+  of z through the decoder's differentiable path (fused_mrf=False). The
+  program spans "vcvits.tts.text_encoder", "vcvits.tts.mas" (neg_cent, M1
+  and the expanded prior) and "vcvits.tts.sdp" mark its phases.
+* `infer`: durations sampled by the SDP ("vcvits.tts.sdp"; exp, mask,
+  `length_scale`, ceil),
   JAX's static frame budget t_out = max_frames or 20 T_x with y_lengths =
   clip(sum ceil(w), 1, t_out), the hard alignment of `generate_path`, the
   prior noise, the flow reverse (K2) and the decoder (K1).
@@ -41,6 +45,7 @@ from vcvits_tpu_torch.ops.monotonic_align import maximum_path
 from vcvits_tpu_torch.text.symbols import symbols
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import generate_path, rand_slice_segments, sequence_mask
+from vcvits_tpu_torch.utils.profiling import span
 
 
 def neg_cent(z_p: torch.Tensor, m_p: torch.Tensor, logs_p: torch.Tensor) -> torch.Tensor:
@@ -65,11 +70,12 @@ class SynthesizerTTS(nn.Module):
                  upsample_rates: Tuple[int, ...], upsample_initial_channel: int,
                  upsample_kernel_sizes: Tuple[int, ...], n_speakers: int = 0,
                  gin_channels: int = 0, dtype=torch.float32,
-                 device="cuda", seed: Optional[int] = 0):
+                 device="cuda", seed: Optional[int] = 0, variance_predictors: bool = True):
         """Builds on `device` ("cuda" by default; raises when no GPU is
         present unless device="cpu"). `seed` initialises the weights as the
         JAX package's initialisers do; pass seed=None and load a state
-        dict instead. `segment_size` is in spectrogram frames."""
+        dict instead. `segment_size` is in spectrogram frames.
+        `variance_predictors` builds the pitch and energy predictors."""
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
@@ -87,8 +93,10 @@ class SynthesizerTTS(nn.Module):
                                           gin_channels=gin_channels, dtype=dtype)
         self.duration_predictor = StochasticDurationPredictor(
             hidden_channels, 192, 3, 0.5, 4, gin_channels=gin_channels)
-        self.pitch_predictor = VariancePredictor(inter_channels, 256, 3, 0.1, dtype=dtype)
-        self.energy_predictor = VariancePredictor(inter_channels, 256, 3, 0.1, dtype=dtype)
+        self.variance_predictors = variance_predictors
+        if variance_predictors:
+            self.pitch_predictor = VariancePredictor(inter_channels, 256, 3, 0.1, dtype=dtype)
+            self.energy_predictor = VariancePredictor(inter_channels, 256, 3, 0.1, dtype=dtype)
         self.emb_g = Embedding(n_speakers, gin_channels, dtype=dtype) if n_speakers >= 1 \
             else None
         if seed is not None:
@@ -99,11 +107,12 @@ class SynthesizerTTS(nn.Module):
     def from_config(cls, cfg: Config, dtype=torch.float32, device="cuda",
                     seed: Optional[int] = 0, n_vocab: Optional[int] = None) -> "SynthesizerTTS":
         """The TTS model of `cfg` (vcvits_tpu/train/tts_step.py:
-        build_tts_models): the text front end's vocabulary unless `n_vocab`
-        is given, the SDP."""
+        build_tts_models): a vocabulary of `n_vocab`, else the config's
+        `model.n_vocab`, else the text front end's; the SDP; the variance
+        predictors where `model.variance_predictors`."""
         m = cfg.model
         return cls(
-            n_vocab=n_vocab or len(symbols), spec_channels=cfg.data.spec_channels,
+            n_vocab=n_vocab or m.n_vocab or len(symbols), spec_channels=cfg.data.spec_channels,
             segment_size=cfg.train.segment_size // cfg.data.hop_length,
             inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
             filter_channels=m.filter_channels, n_heads=m.n_heads, n_layers=m.n_layers,
@@ -112,7 +121,8 @@ class SynthesizerTTS(nn.Module):
             resblock_dilation_sizes=m.resblock_dilation_sizes,
             upsample_rates=m.upsample_rates, upsample_initial_channel=m.upsample_initial_channel,
             upsample_kernel_sizes=m.upsample_kernel_sizes, n_speakers=cfg.data.n_speakers,
-            gin_channels=m.gin_channels, dtype=dtype, device=device, seed=seed)
+            gin_channels=m.gin_channels, dtype=dtype, device=device, seed=seed,
+            variance_predictors=m.variance_predictors)
 
     def _speaker(self, sid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if self.emb_g is not None and sid is not None:
@@ -133,29 +143,36 @@ class SynthesizerTTS(nn.Module):
         `eps` [B, T_y, inter] (the posterior's noise), `e_q` [B, T_x, 2]
         (the SDP's) and `ids_str` [B] (the segment starts) replace the draws
         from `generator`. Returns (o [B, segment*hop, 1], l_length [B],
-        pitch_pred, energy_pred [B, T_y, 1], attn [B, T_x, T_y], ids_slice,
-        x_mask, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q)) with m_p and
-        logs_p expanded to the frames (float32)."""
-        h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, deterministic, dropout_generator)
+        pitch_pred, energy_pred [B, T_y, 1] (None without variance
+        predictors), attn [B, T_x, T_y], ids_slice, x_mask, y_mask, (z, z_p,
+        m_p, logs_p, m_q, logs_q)) with m_p and logs_p expanded to the
+        frames (float32)."""
+        with span("tts.text_encoder"):
+            h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, deterministic, dropout_generator)
         g = self._speaker(sid)
         z, m_q, logs_q, y_mask = self.enc_q(y_spec, y_spec_lengths, g=g, eps=eps,
                                             generator=generator)
         z_p = self.flow(z, y_mask, g=g)
-        with torch.no_grad():
-            attn = maximum_path(neg_cent(z_p, m_p, logs_p), x_lengths, y_spec_lengths)
+        with span("tts.mas"):
+            with torch.no_grad():
+                attn = maximum_path(neg_cent(z_p, m_p, logs_p), x_lengths, y_spec_lengths)
+            attn_t = attn.transpose(1, 2)
+            m_p_exp = torch.matmul(attn_t, m_p.float())
+            logs_p_exp = torch.matmul(attn_t, logs_p.float())
 
-        w = torch.sum(attn, dim=2)[..., None]  # [B, T_x, 1] durations
-        l_length = self.duration_predictor(
-            h, x_mask, w=w, g=g, noise=e_q, generator=generator,
-            deterministic=deterministic, dropout_generator=dropout_generator)
-        den = torch.sum(x_mask)
-        l_length = l_length / (den if mask_sum is None else mask_sum(den))
+        with span("tts.sdp"):
+            w = torch.sum(attn, dim=2)[..., None]  # [B, T_x, 1] durations
+            l_length = self.duration_predictor(
+                h, x_mask, w=w, g=g, noise=e_q, generator=generator,
+                deterministic=deterministic, dropout_generator=dropout_generator)
+            # counted in float32: a bfloat16 sum rounds past 256 positions
+            den = torch.sum(x_mask.float())
+            l_length = l_length / (den if mask_sum is None else mask_sum(den))
 
-        pitch_pred = self.pitch_predictor(z, y_mask, deterministic, dropout_generator)
-        energy_pred = self.energy_predictor(z, y_mask, deterministic, dropout_generator)
-        attn_t = attn.transpose(1, 2)
-        m_p_exp = torch.matmul(attn_t, m_p.float())
-        logs_p_exp = torch.matmul(attn_t, logs_p.float())
+        pitch_pred = energy_pred = None
+        if self.variance_predictors:
+            pitch_pred = self.pitch_predictor(z, y_mask, deterministic, dropout_generator)
+            energy_pred = self.energy_predictor(z, y_mask, deterministic, dropout_generator)
         z_slice, ids_slice = rand_slice_segments(z, y_spec_lengths, self.segment_size,
                                                  generator=generator, ids_str=ids_str)
         o = self.dec(z_slice, g=g, fused_mrf=False)
@@ -173,8 +190,10 @@ class SynthesizerTTS(nn.Module):
         y_mask [B, t_out, 1], (z, z_p, m_p, logs_p))."""
         h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
         g = self._speaker(sid)
-        logw = self.duration_predictor(h, x_mask, g=g, reverse=True, noise_scale=noise_scale_w,
-                                       noise=noise_w, generator=generator)
+        with span("tts.sdp"):
+            logw = self.duration_predictor(h, x_mask, g=g, reverse=True,
+                                           noise_scale=noise_scale_w, noise=noise_w,
+                                           generator=generator)
         w = torch.exp(logw) * x_mask * length_scale
         w_ceil = torch.ceil(w)[..., 0]  # [B, T_x]
 

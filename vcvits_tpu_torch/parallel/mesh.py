@@ -34,6 +34,7 @@ import torch.distributed as dist
 from torch import nn
 
 from vcvits_tpu_torch.parallel.tp import Shard, gather, local_slice
+from vcvits_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -142,20 +143,22 @@ class Mesh:
     @torch.no_grad()
     def sum_grads(self, params: Iterable[nn.Parameter]) -> None:
         """Every present `.grad` summed over the data group in place, one
-        all_reduce per dtype (the psum JAX inserts per step)."""
+        all_reduce per dtype (the psum JAX inserts per step), inside the
+        program span "vcvits.train.grad_sum" (none at data 1)."""
         if self.data == 1:
             return
         by_dtype: Dict[torch.dtype, list] = {}
         for p in params:
             if p.grad is not None:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=self.data_group)
-            off = 0
-            for g in grads:
-                g.copy_(flat[off:off + g.numel()].view_as(g))
-                off += g.numel()
+        with span("train.grad_sum"):
+            for grads in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(flat, group=self.data_group)
+                off = 0
+                for g in grads:
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+                    off += g.numel()
 
     def sum_metrics(self, metrics: Mapping[str, torch.Tensor],
                     keep: Sequence[str] = ()) -> Dict[str, torch.Tensor]:

@@ -411,6 +411,42 @@ class GANStep:
         self.mesh.sum_grads(params)
         return _grad_norm(params, self.sharded, self.mesh)
 
+    def _adversarial_g(self, outputs):
+        """The generator's adversarial loss from the discriminators' outputs
+        on [target; generated] -> (s_gen + s_fm + p_gen + p_fm, its terms by
+        metric name); the MSD's terms only where it is there."""
+        (_, p_lg, p_fr, p_fg), msd = outputs
+        share = self._share
+        terms = {"loss/g/p_fm": share(feature_loss(p_fr, p_fg)),
+                 "loss/g/p_gen": share(generator_loss(p_lg)[0])}
+        loss = terms["loss/g/p_gen"] + terms["loss/g/p_fm"]
+        if msd is not None:
+            _, s_lg, s_fr, s_fg = msd
+            terms["loss/g/s_fm"] = share(feature_loss(s_fr, s_fg))
+            terms["loss/g/s_gen"] = share(generator_loss(s_lg)[0])
+            loss = (terms["loss/g/s_gen"] + terms["loss/g/s_fm"]) + loss
+        return loss, terms
+
+    def _adversarial_d(self, outputs, per_head: bool = False):
+        """The discriminators' LS-GAN loss -> (loss, {"loss/d/p", "loss/d/s"}
+        and, with `per_head`, each head's real and generated terms); the
+        MSD's only where it is there."""
+        (p_lr, p_lg, _, _), msd = outputs
+        share = self._share
+        loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
+        loss = share(loss_p)
+        metrics = {"loss/d/p": loss}
+        heads = [("d_p_r", p_r), ("d_p_g", p_g)]
+        if msd is not None:
+            loss_s, s_r, s_g = discriminator_loss(msd[0], msd[1])
+            metrics["loss/d/s"] = share(loss_s)
+            loss = loss + metrics["loss/d/s"]
+            heads += [("d_s_r", s_r), ("d_s_g", s_g)]
+        if per_head:
+            for name, terms in heads:
+                metrics.update({f"loss/{name}/{i}": share(v) for i, v in enumerate(terms)})
+        return loss, metrics
+
     def _target_segment(self, batch: Batch, ids: torch.Tensor) -> torch.Tensor:
         """The target's segment at `ids`, [B, segment, 1] in the compute dtype."""
         hop = self.cfg.data.hop_length
@@ -541,19 +577,14 @@ class TrainStep(GANStep):
             draws=True)
         sections.begin("g_losses", "G losses (MPD + MSD forward, mel, KL)")
         y_seg = self._target_segment(batch, ids)
-        (p_lr, p_lg, p_fr, p_fg), (s_lr, s_lg, s_fr, s_fg) = self._remat(
-            lambda: self.disc(y_seg, o))
+        adv, adv_metrics = self._adversarial_g(self._remat(lambda: self.disc(y_seg, o)))
         share = self._share
-        loss_p_fm = share(feature_loss(p_fr, p_fg))
-        loss_s_fm = share(feature_loss(s_fr, s_fg))
-        loss_p_gen = share(generator_loss(p_lg)[0])
-        loss_s_gen = share(generator_loss(s_lg)[0])
         o_mel = self._mel_of(o[:, :, 0].float())
         y_mel_slice = slice_segments(y_mel, ids, t.segment_size // cfg.data.hop_length)
         loss_mel = share(torch.mean(torch.abs(o_mel - y_mel_slice))) * t.c_mel
         loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask,
                           self._mask_sum if self.mesh.data > 1 else None) * t.c_kl
-        loss_g = (loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_mel + loss_kl
+        loss_g = adv + loss_mel + loss_kl
         sections.begin("g_backward", "G backward")
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
@@ -561,9 +592,7 @@ class TrainStep(GANStep):
         self.disc.requires_grad_(True)
         grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
-        metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
-                   "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
-                   "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
+        metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g, **adv_metrics,
                    "loss/g/mel": loss_mel, "loss/g/kl": loss_kl}
         return metrics, o, ids
 
@@ -584,21 +613,12 @@ class TrainStep(GANStep):
                 o2, ids2 = o.detach(), ids
         sections.begin("d_forward", "D forward + loss")
         y_seg2 = self._target_segment(batch, ids2)
-        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self._remat(lambda: self.disc(y_seg2, o2))
-        loss_p, p_r, p_g = discriminator_loss(p_lr, p_lg)
-        loss_s, s_r, s_g = discriminator_loss(s_lr, s_lg)
-        share = self._share
-        loss_p, loss_s = share(loss_p), share(loss_s)
-        p_r, p_g, s_r, s_g = ([share(v) for v in terms] for terms in (p_r, p_g, s_r, s_g))
-        loss_d = loss_p + loss_s
+        loss_d, metrics = self._adversarial_d(self._remat(lambda: self.disc(y_seg2, o2)),
+                                              per_head=True)
         sections.begin("d_backward", "D backward")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
         sections.begin("d_optimizer", "D grad norm + AdamW")
         grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, t.grad_clip)
-        metrics = {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d,
-                   "loss/d/p": loss_p, "loss/d/s": loss_s}
-        for name, terms in (("d_p_r", p_r), ("d_p_g", p_g), ("d_s_r", s_r), ("d_s_g", s_g)):
-            metrics.update({f"loss/{name}/{i}": v for i, v in enumerate(terms)})
-        return metrics
+        return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, **metrics}

@@ -12,9 +12,12 @@ F0 in Hz, 0 unvoiced, sid [B]):
    backward, MAS M1, the decoder's differentiable path with its res blocks
    as modules, as JAX's training path runs them), both discriminators on
    the target segment, and total = s_gen + s_fm + p_gen + p_fm + kl + mel
-   + dur + pitch + energy (C_P_FM, C_S_FM, C_DUR, C_PITCH, C_ENERGY below,
-   c_mel and c_kl from the config); the pitch loss over the shorter of the
+   + dur + pitch + energy (C_DUR, C_PITCH, C_ENERGY below, the feature
+   matching terms' weights 1, c_mel and c_kl from the config); the pitch loss over the shorter of the
    target's and the prediction's frames. Backward, global grad norm, AdamW.
+   VITS's configuration (`model.msd_scales` 0, `model.variance_predictors`
+   false) has no MSD terms and no pitch or energy terms, and its batches
+   need no "pitch".
 3. Discriminator: the LS-GAN loss of both discriminators on the G step's
    own output, detached (JAX's TTS step does not recompute the generator,
    unlike the conversion step), backward, grad norm, AdamW.
@@ -53,8 +56,7 @@ from vcvits_tpu_torch.config import Config
 from vcvits_tpu_torch.models.synthesizer_tts import SynthesizerTTS
 from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
 from vcvits_tpu_torch.parallel.mesh import Mesh
-from vcvits_tpu_torch.train.losses import (
-    discriminator_loss, feature_loss, generator_loss, kl_loss)
+from vcvits_tpu_torch.train.losses import kl_loss
 from vcvits_tpu_torch.train.state import accumulate_and_step
 from vcvits_tpu_torch.train.step import GLOBAL_METRICS, GANStep, _Sections, check_step_config
 from vcvits_tpu_torch.utils.device import resolve_device
@@ -63,8 +65,6 @@ from vcvits_tpu_torch.utils.masking import slice_segments
 Batch = Mapping[str, torch.Tensor]
 
 # the loss weights beyond c_mel / c_kl (vcvits_tpu/train/tts_step.py)
-C_P_FM = 1.0
-C_S_FM = 1.0
 C_DUR = 1.0
 C_PITCH = 0.1
 C_ENERGY = 0.1
@@ -111,14 +111,16 @@ class TTSTrainStep(GANStep):
 
     def _targets(self, batch: Batch):
         """(y_spec in the compute dtype, y_mel, energy target, pitch target),
-        frozen: K3 on the float32 wave."""
+        frozen: K3 on the float32 wave; the last two None without variance
+        predictors."""
         d = self.cfg.data
         with torch.no_grad():
             y_spec, y_mel = spectrogram_mel(batch["y_wav"], d.filter_length, d.n_mel_channels,
                                             d.target_sampling_rate, d.hop_length, d.win_length,
                                             d.mel_fmin, d.mel_fmax)
-            energy = torch.log1p(torch.linalg.vector_norm(y_spec, dim=-1))[..., None]
-        pitch = batch["pitch"][..., None].float()
+            energy = torch.log1p(torch.linalg.vector_norm(y_spec, dim=-1))[..., None] \
+                if self.gen.variance_predictors else None
+        pitch = batch["pitch"][..., None].float() if self.gen.variance_predictors else None
         return y_spec.to(self.dtype), y_mel, energy, pitch
 
     def __call__(self, batch: Batch, draws: Optional[TTSStepDraws] = None,
@@ -165,26 +167,26 @@ class TTSTrainStep(GANStep):
         sections.begin("g_losses",
                        "G losses (MPD + MSD forward, mel, KL, duration, pitch, energy)")
         y_seg = self._target_segment(batch, ids)
-        (_, p_lg, p_fr, p_fg), (_, s_lg, s_fr, s_fg) = self.disc(y_seg, o)
+        adv, adv_metrics = self._adversarial_g(self.disc(y_seg, o))
         share = self._share
-        loss_p_fm = share(feature_loss(p_fr, p_fg)) * C_P_FM
-        loss_s_fm = share(feature_loss(s_fr, s_fg)) * C_S_FM
-        loss_p_gen = share(generator_loss(p_lg)[0])
-        loss_s_gen = share(generator_loss(s_lg)[0])
         o_mel = self._mel_of(o[:, :, 0].float())
         y_mel_slice = slice_segments(y_mel, ids, t.segment_size // hop)
         loss_mel = share(torch.mean(torch.abs(o_mel - y_mel_slice))) * t.c_mel
         loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask, mask_sum) * t.c_kl
         # l_length is already over the global sum(x_mask): a sum of shares
         loss_dur = torch.sum(l_length.float()) * C_DUR
-        n = min(pitch_tgt.shape[1], pitch_pred.shape[1])
-        ym32 = y_mask.float()
-        loss_pitch = share(torch.mean(((pitch_pred[:, :n] - pitch_tgt[:, :n]) ** 2)
-                                      * ym32[:, :n])) * C_PITCH
-        loss_energy = share(torch.mean(((energy_pred - energy_tgt.to(energy_pred.dtype)) ** 2)
-                                       * ym32)) * C_ENERGY
-        loss_g = ((loss_s_gen + loss_s_fm) + (loss_p_gen + loss_p_fm) + loss_kl + loss_mel
-                  + loss_dur + loss_pitch + loss_energy)
+        loss_g = adv + loss_kl + loss_mel + loss_dur
+        metrics = {**adv_metrics, "loss/g/mel": loss_mel, "loss/g/kl": loss_kl,
+                   "loss/g/dur": loss_dur}
+        if pitch_pred is not None:
+            n = min(pitch_tgt.shape[1], pitch_pred.shape[1])
+            ym32 = y_mask.float()
+            loss_pitch = share(torch.mean(((pitch_pred[:, :n] - pitch_tgt[:, :n]) ** 2)
+                                          * ym32[:, :n])) * C_PITCH
+            loss_energy = share(torch.mean(((energy_pred - energy_tgt.to(energy_pred.dtype))
+                                            ** 2) * ym32)) * C_ENERGY
+            loss_g = loss_g + loss_pitch + loss_energy
+            metrics.update({"loss/g/pitch": loss_pitch, "loss/g/energy": loss_energy})
         sections.begin("g_backward", "G backward")
         self.g_opt.zero_grad(set_to_none=True)
         loss_g.backward()
@@ -192,27 +194,18 @@ class TTSTrainStep(GANStep):
         self.disc.requires_grad_(True)
         grad_norm_g = self._sum_and_norm(self.g_params)
         accumulate_and_step(self.g_opt, self.g_acc, self.mini_step, t.grad_clip)
-        metrics = {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g,
-                   "loss/g/p_fm": loss_p_fm, "loss/g/s_fm": loss_s_fm,
-                   "loss/g/p_gen": loss_p_gen, "loss/g/s_gen": loss_s_gen,
-                   "loss/g/mel": loss_mel, "loss/g/kl": loss_kl, "loss/g/dur": loss_dur,
-                   "loss/g/pitch": loss_pitch, "loss/g/energy": loss_energy}
-        return metrics, o, ids
+        return {"loss/g/total": loss_g, "grad_norm_g": grad_norm_g, **metrics}, o, ids
 
     def _discriminator_step(self, batch: Batch, o: torch.Tensor, ids: torch.Tensor,
                             sections: _Sections) -> Dict[str, torch.Tensor]:
         """The LS-GAN D update on the G step's output, detached."""
         sections.begin("d_forward", "D forward + loss")
         y_seg = self._target_segment(batch, ids)
-        (p_lr, p_lg, _, _), (s_lr, s_lg, _, _) = self.disc(y_seg, o.detach())
-        loss_p = self._share(discriminator_loss(p_lr, p_lg)[0])
-        loss_s = self._share(discriminator_loss(s_lr, s_lg)[0])
-        loss_d = loss_p + loss_s
+        loss_d, metrics = self._adversarial_d(self.disc(y_seg, o.detach()))
         sections.begin("d_backward", "D backward")
         self.d_opt.zero_grad(set_to_none=True)
         loss_d.backward()
         sections.begin("d_optimizer", "D grad norm + AdamW")
         grad_norm_d = self._sum_and_norm(self.d_params)
         accumulate_and_step(self.d_opt, self.d_acc, self.mini_step, self.cfg.train.grad_clip)
-        return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, "loss/d/p": loss_p,
-                "loss/d/s": loss_s}
+        return {"loss/d/total": loss_d, "grad_norm_d": grad_norm_d, **metrics}

@@ -112,7 +112,8 @@ class TTSTrainer:
                            self.mesh.data)
             return None
         main = self.mesh.is_main
-        ds = TTSDataset(train_files, cfg.data, cleaners=self.cleaners, add_blank=self.add_blank)
+        ds = TTSDataset(train_files, cfg.data, cleaners=self.cleaners, add_blank=self.add_blank,
+                        pitch=cfg.model.variance_predictors)
         step = self.train_step
         step.generator.manual_seed(cfg.train.seed)
         step.dropout_generator.manual_seed(cfg.train.seed + 1)
