@@ -52,7 +52,11 @@ fp32 F.linear with TF32 off, at every dense layer of HuBERT XTRALARGE and
 base (each with its epilogue) at 1-500 rows and a daemon batch of 16 x
 500 rows, bit-identical over two runs and near its plain version; a
 conversion launches it 193 times with XTRALARGE, 49 with base, and a bf16
-train step never.
+train step never. The train step as CUDA graphs (train/graphs.py) equals,
+bit for bit under deterministic algorithms, its eager twin from the same
+seed: fp32 and bf16, two batch signatures, accumulation over two
+mini-steps, a capture that fails, and a checkpoint resumed; under remat
+every call runs eagerly.
 """
 
 import numpy as np
@@ -1111,3 +1115,223 @@ def test_hubert_gemm_stays_out_of_a_bf16_train_step(dev):
         torch.cuda.synchronize()
         assert _build.LAUNCHES["hubert_gemm"] - before == launches, dtype
 
+
+
+# ------------------------------------------------------- the step as CUDA graphs
+# train/graphs.py. Each test holds a step whose calls run as CUDA graphs to a
+# twin built from the same seed whose calls all run eagerly (its `engages`
+# replaced): under deterministic algorithms (cuDNN's deterministic
+# algorithms, cuBLAS's fixed workspace) the two compute the same kernels on
+# the same inputs in the same order, so metrics, parameters, AdamW's state
+# and the generators' states are held bit for bit.
+
+def _graph_cfg(train=None, trainer=None):
+    from vcvits_tpu_torch.config import Config
+
+    raw = {**TINY_TRAIN, "model": {**TINY_TRAIN["model"], "p_dropout": 0.1},
+           "train": {**TINY_TRAIN["train"], **(train or {})}}
+    if trainer:
+        raw["trainer"] = trainer
+    return Config.from_dict(raw)
+
+
+def _graph_hub():
+    from vcvits_tpu_torch.models.hubert import HubertConfig
+
+    return HubertConfig(conv_layers=((16, 10, 5), (16, 8, 8), (16, 8, 8)), hidden_size=16,
+                        num_layers=1, num_heads=2, intermediate_size=32, pos_conv_kernel=8,
+                        pos_conv_groups=2)
+
+
+def _graph_batch(dev, seed, tx=5120, ty=15360):
+    g = np.random.default_rng(seed)
+    batch = {"x_wav": torch.tensor(g.standard_normal((2, tx)) * 0.1, dtype=torch.float32),
+             "x_wav_lengths": torch.tensor([tx, tx - 640], dtype=torch.int32),
+             "x_pitch": torch.tensor(g.integers(1, 64, (2, tx // 320))),
+             "y_wav": torch.tensor(g.standard_normal((2, ty)) * 0.1, dtype=torch.float32),
+             "y_wav_lengths": torch.tensor([ty, ty - 2048], dtype=torch.int32),
+             "sid": torch.tensor([1, 5])}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _twins(dev, monkeypatch, cfg, dtype=torch.float32):
+    """(graph step, eager step) from the same seed."""
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    graph, eager = (TrainStep(cfg, device=dev, hubert_cfg=_graph_hub(), seed=4, dtype=dtype)
+                    for _ in range(2))
+    monkeypatch.setattr(eager.graphs, "engages", lambda: False)
+    return graph, eager
+
+
+def _assert_same_state(a, b):
+    for (name, p), q in zip(list(a.gen.named_parameters()) + list(a.disc.named_parameters()),
+                            list(b.gen.parameters()) + list(b.disc.parameters())):
+        assert torch.equal(p, q), name
+    for oa, ob in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt)):
+        pa = [p for g in oa.param_groups for p in g["params"]]
+        pb = [p for g in ob.param_groups for p in g["params"]]
+        for p, q in zip(pa, pb):
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(oa.state[p][k], ob.state[q][k]), k
+    for ga, gb in ((a.generator, b.generator), (a.dropout_generator, b.dropout_generator)):
+        assert torch.equal(ga.get_state(), gb.get_state())
+
+
+def _assert_same_metrics(got, want, what):
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k].cpu()), (what, k)
+
+
+def _graph_counts(before):
+    return {k: _build.GRAPHS[k] - before.get(k, 0) for k in
+            ("eager", "captured", "replayed", "capture_failed")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_graphs_match_eager(dev, deterministic, monkeypatch, dtype):
+    """Four steps from the same seed, every draw (posterior noise, segment
+    starts, dropout) from the step's generators: the first eager, the
+    second captured and replayed once, the last two replayed. Each step's
+    metrics, and after the four the parameters, AdamW's moments and step
+    counts and both generators' states, equal the eager twin's bit for
+    bit. The metrics a call returned are unchanged by the calls after it,
+    the kernels' launch counts a step are the eager step's, and `timings`
+    times all nine sections between the replayed graphs."""
+    graph, eager = _twins(dev, monkeypatch, _graph_cfg(), dtype)
+    assert all(opt.defaults["fused"] and isinstance(opt.param_groups[0]["lr"], torch.Tensor)
+               for opt in (graph.g_opt, graph.d_opt))
+    batch = _graph_batch(dev, 0)
+    before = dict(_build.GRAPHS)
+    kept, copies = [], []
+    for i in range(4):
+        want = eager(batch)
+        launched = dict(_build.LAUNCHES)
+        parts = {}
+        got = graph(batch, timings=parts)
+        torch.cuda.synchronize()
+        rose = {k: _build.LAUNCHES[k] - launched.get(k, 0)
+                for k in ("stft_mel", "fused_gate", "fused_gate_backward")}
+        assert rose == {"stft_mel": 1, "fused_gate": 64, "fused_gate_backward": 32}, i
+        assert len(parts) == 9 and all(v > 0 for v in parts.values()), (i, parts)
+        _assert_same_metrics(got, want, f"step {i + 1}")
+        kept.append(got)
+        copies.append({k: v.clone() for k, v in got.items()})
+    _assert_same_state(graph, eager)
+    for i, (got, copy) in enumerate(zip(kept, copies)):
+        _assert_same_metrics(got, copy, f"step {i + 1}'s metrics after step 4")
+    assert _graph_counts(before) == {"eager": 5, "captured": 1, "replayed": 2,
+                                     "capture_failed": 0}
+
+
+def test_train_step_graphs_two_signatures(dev, deterministic, monkeypatch):
+    """Batches of two shapes, A B A B: A's first call eager, B captured, A
+    captured, B replayed, in one memory pool; each step equals the eager
+    twin's."""
+    graph, eager = _twins(dev, monkeypatch, _graph_cfg())
+    a, b = _graph_batch(dev, 0), _graph_batch(dev, 1, tx=6400, ty=19200)
+    before = dict(_build.GRAPHS)
+    for i, batch in enumerate((a, b, a, b)):
+        want = eager(batch)
+        got = graph(batch)
+        _assert_same_metrics(got, want, f"call {i + 1}")
+    _assert_same_state(graph, eager)
+    counts = _graph_counts(before)
+    counts["eager"] -= 4  # the twin's
+    assert counts == {"eager": 1, "captured": 2, "replayed": 1, "capture_failed": 0}
+
+
+def test_train_step_graphs_accumulate(dev, deterministic, monkeypatch):
+    """accumulate_grad_batches 2: a signature a mini-step phase. The first
+    two calls run eagerly (AdamW makes its state on the second), the next
+    two capture phases 0 and 1, the fifth replays phase 0; each equals the
+    eager twin's, the parameters and the accumulator's means after."""
+    graph, eager = _twins(dev, monkeypatch, _graph_cfg(trainer={"accumulate_grad_batches": 2}))
+    batches = [_graph_batch(dev, s) for s in range(5)]
+    before = dict(_build.GRAPHS)
+    for i, batch in enumerate(batches):
+        want = eager(batch)
+        got = graph(batch)
+        _assert_same_metrics(got, want, f"mini-step {i + 1}")
+    _assert_same_state(graph, eager)
+    for ma, mb in zip(graph.g_acc.mean + graph.d_acc.mean, eager.g_acc.mean + eager.d_acc.mean):
+        assert torch.equal(ma, mb)
+    counts = _graph_counts(before)
+    counts["eager"] -= 5
+    assert counts == {"eager": 2, "captured": 2, "replayed": 1, "capture_failed": 0}
+
+
+def test_train_step_under_remat_stays_eager(dev):
+    """remat_policy "dots": `checkpointed` sets the generators' states on
+    the host inside the backward, so every call runs eagerly."""
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    step = TrainStep(_graph_cfg(train={"remat_policy": "dots"}), device=dev,
+                     hubert_cfg=_graph_hub(), seed=4)
+    batch = _graph_batch(dev, 0)
+    before = dict(_build.GRAPHS)
+    for _ in range(3):
+        step(batch)
+    assert _graph_counts(before) == {"eager": 3, "captured": 0, "replayed": 0,
+                                     "capture_failed": 0}
+
+
+def test_train_step_capture_failure_leaves_its_signature_eager(dev, deterministic, monkeypatch):
+    """A step whose KL waits on the host (`float` of a card tensor, which a
+    capture refuses) after the forward drew its noise and dropout: the
+    capture fails, the call runs eagerly with the generators where an eager
+    call leaves them, and the signature stays eager; every step equals the
+    eager twin's."""
+    from vcvits_tpu_torch.train import step as step_mod
+
+    kl = step_mod.kl_loss
+
+    def synced_kl(*args):
+        out = kl(*args)
+        float(out)
+        return out
+
+    monkeypatch.setattr(step_mod, "kl_loss", synced_kl)
+    graph, eager = _twins(dev, monkeypatch, _graph_cfg())
+    batch = _graph_batch(dev, 0)
+    before = dict(_build.GRAPHS)
+    for i in range(3):
+        want = eager(batch)
+        got = graph(batch)
+        _assert_same_metrics(got, want, f"call {i + 1}")
+    _assert_same_state(graph, eager)
+    counts = _graph_counts(before)
+    counts["eager"] -= 3
+    assert counts == {"eager": 2, "captured": 0, "replayed": 0, "capture_failed": 1}
+
+
+def test_train_step_graphs_resume_a_host_step_checkpoint(dev, deterministic, monkeypatch):
+    """A state with AdamW's step counts on the host (as checkpoints hold
+    them, and as the optimizer kept them before it was fused) loads
+    into a step on the card and resumes as the step it was taken from
+    goes on: two steps later both are equal."""
+    from vcvits_tpu_torch.train.checkpoint import _to_host
+    from vcvits_tpu_torch.train.step import TrainStep
+
+    graph, _ = _twins(dev, monkeypatch, _graph_cfg())
+    batch = _graph_batch(dev, 0)
+    for _ in range(3):
+        graph(batch)
+    state = _to_host(graph.state_dict())
+    assert all(m["step"].device.type == "cpu" for m in state["g_opt"].values())
+    resumed = TrainStep(_graph_cfg(), device=dev, hubert_cfg=_graph_hub(), seed=9)
+    resumed.load_state_dict(state)
+    resumed.generator.set_state(graph.generator.get_state())
+    resumed.dropout_generator.set_state(graph.dropout_generator.get_state())
+    for i in range(2):
+        _assert_same_metrics(resumed(batch), graph(batch), f"resumed step {i + 1}")
+    _assert_same_state(resumed, graph)

@@ -9,17 +9,33 @@ step (`mel_spectrogram`, gradients flow) and the source smoothing
 step and the spec of `voice_conversion` go through ops/stft_mel.py
 (kernel K3), whose plain version is the same DFT by matmul against
 `dft_basis`, with `mel_filterbank`.
+
+The window and the filterbank are made in NumPy once and copied to each
+device once (`device_table`): a copy from pageable host memory waits for
+the device, which a step's every call would pay and a CUDA graph capture
+refuses.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+_DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def device_table(device: torch.device, make, *key) -> torch.Tensor:
+    """A table made by `make(*key)` in NumPy, copied to `device` once per
+    device and key."""
+    full = (str(device), make.__name__, *key)
+    if full not in _DEVICE_TABLES:
+        _DEVICE_TABLES[full] = torch.as_tensor(np.ascontiguousarray(make(*key)), device=device)
+    return _DEVICE_TABLES[full]
 
 
 def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
@@ -76,7 +92,7 @@ def stft_complex(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
         raise ValueError(f"n_fft ({n_fft}) must be >= hop_length ({hop_length}) for the "
                          "reflect-padding scheme")
     frames = frame_signal(reflect_pad(y, pad), n_fft, hop_length)
-    win = torch.as_tensor(_padded_window(n_fft, win_length), device=y.device)
+    win = device_table(y.device, _padded_window, n_fft, win_length)
     spec = torch.fft.rfft(frames * win, dim=-1)
     return spec.real, spec.imag
 
@@ -104,7 +120,7 @@ def istft(spec_re: torch.Tensor, spec_im: torch.Tensor, n_fft: int, hop_length: 
     windowed overlap-add over the squared-window envelope.
     [B, frames, n_fft//2+1] -> [B, hop*(frames-1)]."""
     t_frames = spec_re.shape[1]
-    win = torch.as_tensor(_padded_window(n_fft, win_length), device=spec_re.device)
+    win = device_table(spec_re.device, _padded_window, n_fft, win_length)
     frames = torch.fft.irfft(torch.complex(spec_re, spec_im), n=n_fft, dim=-1) * win
     wav = overlap_add(frames, hop_length)
     wsq = overlap_add((win * win).expand(1, t_frames, n_fft), hop_length)
@@ -154,7 +170,7 @@ def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.
 def spec_to_mel(spec: torch.Tensor, n_fft: int, n_mels: int, sr: int, fmin: float = 0.0,
                 fmax: Optional[float] = None) -> torch.Tensor:
     """[B, T, F] linear magnitude -> [B, T, n_mels] log-mel."""
-    fbank = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, fmin, fmax), device=spec.device)
+    fbank = device_table(spec.device, mel_filterbank, sr, n_fft, n_mels, fmin, fmax)
     return dynamic_range_compression(spec @ fbank.t())
 
 

@@ -207,7 +207,8 @@ class ConvFlow(nn.Module):
         b, t, _ = x0.shape
         h = h.reshape(b, t, self.half, -1)
         k = self.num_bins
-        scale = 1.0 / torch.sqrt(torch.tensor(float(self.filter_channels), device=x.device))
+        # float32 on the host: a scalar copied to the card would wait for it
+        scale = 1.0 / torch.sqrt(torch.tensor(float(self.filter_channels)))
         x1_new, logabsdet = piecewise_rational_quadratic_transform(
             x1, h[..., :k] * scale, h[..., k:2 * k] * scale, h[..., 2 * k:], inverse=reverse,
             tails="linear", tail_bound=self.tail_bound)

@@ -16,7 +16,10 @@ The host library `csrc/host_dsp.cc` is built by the sibling
 `ops/_host_build.py`, which imports no torch.
 
 `LAUNCHES` counts kernel launches by kernel name: every wrapper adds one
-(`count`) where it launches its kernel, and nowhere else. Kernels launch
+(`count`) where it launches its kernel, and a replayed CUDA graph adds the
+launches captured in it (`add`, train/graphs.py). `GRAPHS` counts the
+train step's calls by how they ran: "eager", "captured", "replayed" and
+"capture_failed" (train/graphs.py). Kernels launch
 from several threads at once when serving (the daemon's dispatcher and
 each streaming connection), so `load` builds and loads a library once per
 process under a lock, and `count` adds under a lock. `device_guard` and
@@ -49,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
+GRAPHS: collections.Counter = collections.Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -59,6 +63,14 @@ def count(name: str) -> None:
     """Add one launch of kernel `name` to LAUNCHES."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def add(launches: Dict[str, int]) -> None:
+    """Add launches by kernel name to LAUNCHES (negative counts take back)."""
+    with _COUNT_LOCK:
+        LAUNCHES.update(launches)
+        for name in [k for k, n in LAUNCHES.items() if n == 0]:
+            del LAUNCHES[name]
 
 
 def _nvcc() -> str:

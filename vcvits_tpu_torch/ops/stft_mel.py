@@ -36,31 +36,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vcvits_tpu_torch.dsp.spectrogram import (
-    _padded_window, dft_basis, mel_filterbank, reflect_pad)
+    _padded_window, dft_basis, device_table, mel_filterbank, reflect_pad)
 from vcvits_tpu_torch.ops import _build
 
 # frames per block the kernel is built for
 _TILES = (1, 2)
 MAX_MELS = 256  # the kernel stages the band table in a fixed shared array
 SPEC_MEL, SPEC_ONLY, MEL_ONLY = 0, 1, 2
-
-
-_DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
-
-
-def _on_device(device: torch.device, make, *key) -> torch.Tensor:
-    """A table made by `make(*key)` in NumPy, copied to `device` once per
-    device and key."""
-    full = (str(device), make.__name__, *key)
-    if full not in _DEVICE_TABLES:
-        _DEVICE_TABLES[full] = torch.as_tensor(np.ascontiguousarray(make(*key)), device=device)
-    return _DEVICE_TABLES[full]
 
 
 def _cos_basis(n_fft: int, win_length: int) -> np.ndarray:
@@ -80,10 +68,10 @@ def _tables(device: torch.device, n_fft: int, win_length: int, n_mels: Optional[
             sr: int = 0, fmin: float = 0.0, fmax: Optional[float] = None):
     """The plain versions' float64 (cos [n_fft, F], sin [n_fft, F], fbank
     [F, n_mels] or None) on `device`."""
-    fbank = None if n_mels is None else _on_device(device, _fbank_t, sr, n_fft, n_mels, fmin,
+    fbank = None if n_mels is None else device_table(device, _fbank_t, sr, n_fft, n_mels, fmin,
                                                    fmax)
-    return (_on_device(device, _cos_basis, n_fft, win_length),
-            _on_device(device, _sin_basis, n_fft, win_length), fbank)
+    return (device_table(device, _cos_basis, n_fft, win_length),
+            device_table(device, _sin_basis, n_fft, win_length), fbank)
 
 
 def _frames(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
@@ -264,10 +252,10 @@ def _launch(y: torch.Tensor, mode: int, n_fft: int, hop_length: int, win_length:
     nf = 1 + (t + 2 * pad - n_fft) // hop_length
     if tile is None:
         tile = pick_tile(b, nf, torch.cuda.get_device_properties(y.device).multi_processor_count)
-    window = _on_device(y.device, _window, n_fft, win_length)
-    twiddle = _on_device(y.device, fft_twiddles, n_fft)
-    bands = _on_device(y.device, _band_table, sr, n_fft, n_mels, fmin, fmax) if with_mel else None
-    weights = (_on_device(y.device, _band_weights, sr, n_fft, n_mels, fmin, fmax) if with_mel
+    window = device_table(y.device, _window, n_fft, win_length)
+    twiddle = device_table(y.device, fft_twiddles, n_fft)
+    bands = device_table(y.device, _band_table, sr, n_fft, n_mels, fmin, fmax) if with_mel else None
+    weights = (device_table(y.device, _band_weights, sr, n_fft, n_mels, fmin, fmax) if with_mel
                else None)
     lib = _lib()
     with _build.device_guard(y.device):

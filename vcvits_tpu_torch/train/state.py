@@ -56,9 +56,19 @@ def trainable_parameters(model: nn.Module, freeze_hubert: bool = True) -> Iterab
 
 
 def make_optimizer(params: Iterable[nn.Parameter], cfg: Config) -> torch.optim.AdamW:
+    """AdamW over `params`. On the card it is fused (one multi-tensor
+    kernel updates every parameter), with its learning rate a float32
+    tensor beside the parameters (the step fills it) and its step counts
+    there too, so a CUDA graph replays its update (train/graphs.py).
+    `capturable` is set only because torch's capture check reads it; the
+    fused update ignores it."""
     t = cfg.train
-    return torch.optim.AdamW(params, lr=t.learning_rate, betas=tuple(t.betas), eps=t.eps,
-                             weight_decay=0.01)
+    params = list(params)
+    kw = dict(betas=tuple(t.betas), eps=t.eps, weight_decay=0.01)
+    if params and params[0].device.type == "cuda":
+        lr = torch.tensor(t.learning_rate, dtype=torch.float32, device=params[0].device)
+        return torch.optim.AdamW(params, lr=lr, fused=True, capturable=True, **kw)
+    return torch.optim.AdamW(params, lr=t.learning_rate, **kw)
 
 
 class GradAccumulator:

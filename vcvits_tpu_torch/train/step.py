@@ -48,7 +48,9 @@ Each call is a program span "vcvits.train.step" (utils/profiling.py), with
 one span a section: "vcvits.train.features", "g_forward", "g_losses",
 "g_backward", "g_optimizer" (grad norm, clip, AdamW), "d_recompute",
 "d_forward", "d_backward", "d_optimizer" (`_Sections`, which also times
-them with CUDA events under `timings=`).
+them with CUDA events under `timings=`). On one CUDA rank under remat
+"none" the sections run as CUDA graphs, captured per batch signature and
+cut at these spans (train/graphs.py).
 
 Every random draw is explicit: `StepDraws` injects the posterior noise and
 the segment starts of either forward (tests inject JAX's), and what is not
@@ -94,6 +96,7 @@ from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
 from vcvits_tpu_torch.parallel.mesh import (
     Mesh, full_tensor, grad_sq_norm, local_tensor, shard_params_tp)
 from vcvits_tpu_torch.train.audio_pipeline import smooth_source
+from vcvits_tpu_torch.train.graphs import StepGraphs
 from vcvits_tpu_torch.train.losses import (
     discriminator_loss, feature_loss, generator_loss, kl_loss)
 from vcvits_tpu_torch.train.state import (
@@ -101,7 +104,7 @@ from vcvits_tpu_torch.train.state import (
     trainable_parameters)
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import segment_starts, slice_segments
-from vcvits_tpu_torch.utils.profiling import span
+from vcvits_tpu_torch.utils.profiling import current_cut, span
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -189,16 +192,17 @@ class _Sections:
     open section and starts `name`. Each is a program span
     "vcvits.train.<name>" (utils/profiling.py), inside "vcvits.train.step",
     which the `with` block opens and closes. When `out` is a dict (and the
-    step runs on the card), CUDA events at the section boundaries give
-    each section's device ms, stream time with its gaps, added into
-    `out[key]` by `done()`."""
+    step runs on the card), CUDA events at the section boundaries (`mark`)
+    give each section's device ms, stream time with its gaps, added into
+    `out[key]` by `done()`. Under a CUDA graph capture (train/graphs.py)
+    a mark is a boundary of the capture, and its replay records the event."""
 
     def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
         self.out = out if device.type == "cuda" else None
         self.marks = []
         self.open: list = []    # the open spans, outermost first
         self.key: Optional[str] = None
-        self._mark("start")
+        self.mark("start")
 
     def __enter__(self) -> "_Sections":
         self._push("train.step")
@@ -214,27 +218,32 @@ class _Sections:
         sp.__enter__()
         self.open.append(sp)
 
-    def _mark(self, key: str) -> None:
-        if self.out is not None:
+    def mark(self, key: str) -> None:
+        """The end of section `key` (or the "start"), timed under `out`."""
+        cut = current_cut()
+        if cut is not None:
+            cut.boundary(("mark", key))
+        elif self.out is not None:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.marks.append((key, ev))
 
-    def _end(self) -> None:
+    def end(self) -> None:
+        """End the open section."""
         if self.key is not None:
-            self._mark(self.key)
+            self.mark(self.key)
             self.open.pop().__exit__(None, None, None)
             self.key = None
 
     def begin(self, name: str, key: str) -> None:
         """End the open section; start section `name`, timed under `key`."""
-        self._end()
+        self.end()
         self._push("train." + name)
         self.key = key
 
     def done(self) -> None:
         """End the last section; add each section's device ms into `out`."""
-        self._end()
+        self.end()
         if self.out is None:
             return
         self.marks[-1][1].synchronize()
@@ -295,6 +304,28 @@ class GANStep:
         self.mini_step = 0
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
+        self.graphs = StepGraphs(self)
+
+    Draws = StepDraws
+
+    def __call__(self, batch: Batch, draws=None,
+                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+        """One step on a batch of padded tensors on the step's device (the
+        subclass's `_step` says which), with `draws` (a `Draws`; None draws
+        everything from the step's generators). With `timings` (a dict) on
+        the card, each section's device ms is added to it. On one CUDA rank
+        the sections run as CUDA graphs (train/graphs.py)."""
+        draws = draws or self.Draws()
+        with _Sections(timings, self.device) as sections:
+            # AdamW's schedule counts real updates, the logged rate mini-steps
+            self._set_lr(self.schedule(self.updates))
+            metrics = self.graphs.run(self._step, batch, draws, sections)
+            sections.done()
+        metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
+                   **metrics}
+        self._advance()
+        metrics = self.mesh.sum_metrics(metrics, keep=GLOBAL_METRICS)
+        return {k: v.detach() for k, v in metrics.items()}
 
     def set_steps_per_epoch(self, steps_per_epoch: Optional[int]) -> None:
         """The schedule's epoch length: `steps_per_epoch` where the config
@@ -327,6 +358,7 @@ class GANStep:
         with k == 1, so one update a step) starts a fresh accumulator at
         `updates` = `step`."""
         gt, dt = self.g_tp, self.d_tp
+        self.graphs.clear()
         self.step = int(state["step"])
         self.gen.load_state_dict(self._local(state["gen"], gt))
         self.disc.load_state_dict(self._local(state["disc"], dt))
@@ -334,9 +366,13 @@ class GANStep:
                                      (self.disc, self.d_opt, "d_opt", dt)):
             opt.state.clear()
             named = dict(module.named_parameters())
+            # AdamW keeps its step count on the host, or in float32 beside
+            # the parameter where it is fused (train/state.make_optimizer)
+            on_card = opt.defaults["fused"] or opt.defaults["capturable"]
             for name, moments in state[key].items():
                 p = named[name]
-                opt.state[p] = {k: (v.detach().to("cpu", copy=True) if k == "step" else
+                opt.state[p] = {k: ((v.detach().to(p.device, torch.float32, copy=True) if on_card
+                                     else v.detach().to("cpu", copy=True)) if k == "step" else
                                     local_tensor(v.detach(), tp.get(name), self.mesh)
                                     .to(p.device, copy=True))
                                 for k, v in moments.items()}
@@ -466,9 +502,13 @@ class GANStep:
         self.step += 1
 
     def _set_lr(self, lr: float) -> None:
+        """Every group's learning rate (a tensor on the card is filled)."""
         for opt in (self.g_opt, self.d_opt):
             for group in opt.param_groups:
-                group["lr"] = lr
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
 
 
 class TrainStep(GANStep):
@@ -542,27 +582,18 @@ class TrainStep(GANStep):
         return checkpointed(fn, policy,
                             (self.generator, self.dropout_generator) if draws else ())
 
-    def __call__(self, batch: Batch, draws: Optional[StepDraws] = None,
-                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-        """One step on a batch of padded tensors on the step's device:
-        x_wav [B, Tx] 16 kHz, x_wav_lengths [B], x_pitch [B, Tx//320],
-        y_wav [B, Ty] 48 kHz, y_wav_lengths [B], sid [B] (on a data mesh,
-        this rank's rows). With `timings` (a dict) on the card, each
-        section's device ms is added to it."""
-        draws = draws or StepDraws()
-        with _Sections(timings, self.device) as sections:
-            # AdamW's schedule counts real updates, the logged rate mini-steps
-            self._set_lr(self.schedule(self.updates))
-            sections.begin("features", "features (smooth_source, HuBERT, K3)")
-            feats = self._features(batch)
-            g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
-            d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
-            sections.done()
-        metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
-                   **g_metrics, **d_metrics}
-        self._advance()
-        metrics = self.mesh.sum_metrics(metrics, keep=GLOBAL_METRICS)
-        return {k: v.detach() for k, v in metrics.items()}
+    def _step(self, batch: Batch, draws: StepDraws, sections: _Sections
+              ) -> Dict[str, torch.Tensor]:
+        """The sections of one step on a batch of padded tensors on the
+        step's device: x_wav [B, Tx] 16 kHz, x_wav_lengths [B], x_pitch [B,
+        Tx//320], y_wav [B, Ty] 48 kHz, y_wav_lengths [B], sid [B] (on a
+        data mesh, this rank's rows) -> the G and D metrics."""
+        sections.begin("features", "features (smooth_source, HuBERT, K3)")
+        feats = self._features(batch)
+        g_metrics, o, ids = self._generator_step(batch, feats, draws, sections)
+        d_metrics = self._discriminator_step(batch, feats, o, ids, draws, sections)
+        sections.end()
+        return {**g_metrics, **d_metrics}
 
     def _generator_step(self, batch: Batch, feats, draws: StepDraws, sections: _Sections):
         """Forward, losses, backward and AdamW step of the generator (the

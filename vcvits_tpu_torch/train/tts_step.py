@@ -58,7 +58,7 @@ from vcvits_tpu_torch.ops.stft_mel import spectrogram_mel
 from vcvits_tpu_torch.parallel.mesh import Mesh
 from vcvits_tpu_torch.train.losses import kl_loss
 from vcvits_tpu_torch.train.state import accumulate_and_step
-from vcvits_tpu_torch.train.step import GLOBAL_METRICS, GANStep, _Sections, check_step_config
+from vcvits_tpu_torch.train.step import GANStep, _Sections, check_step_config
 from vcvits_tpu_torch.utils.device import resolve_device
 from vcvits_tpu_torch.utils.masking import slice_segments
 
@@ -123,23 +123,18 @@ class TTSTrainStep(GANStep):
         pitch = batch["pitch"][..., None].float() if self.gen.variance_predictors else None
         return y_spec.to(self.dtype), y_mel, energy, pitch
 
-    def __call__(self, batch: Batch, draws: Optional[TTSStepDraws] = None,
-                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-        """One step on a batch of padded tensors on the step's device. With
-        `timings` (a dict) on the card, each section's device ms is added."""
-        draws = draws or TTSStepDraws()
-        with _Sections(timings, self.device) as sections:
-            self._set_lr(self.schedule(self.updates))
-            sections.begin("targets", "targets (K3)")
-            targets = self._targets(batch)
-            g_metrics, o, ids = self._generator_step(batch, targets, draws, sections)
-            d_metrics = self._discriminator_step(batch, o, ids, sections)
-            sections.done()
-        metrics = {"learning_rate": torch.tensor(self.schedule(self.step), dtype=torch.float32),
-                   **g_metrics, **d_metrics}
-        self._advance()
-        metrics = self.mesh.sum_metrics(metrics, keep=GLOBAL_METRICS)
-        return {k: v.detach() for k, v in metrics.items()}
+    Draws = TTSStepDraws
+
+    def _step(self, batch: Batch, draws: TTSStepDraws, sections: _Sections
+              ) -> Dict[str, torch.Tensor]:
+        """The sections of one step on a batch of padded tensors on the
+        step's device -> the G and D metrics (`GANStep.__call__` runs them)."""
+        sections.begin("targets", "targets (K3)")
+        targets = self._targets(batch)
+        g_metrics, o, ids = self._generator_step(batch, targets, draws, sections)
+        d_metrics = self._discriminator_step(batch, o, ids, sections)
+        sections.end()
+        return {**g_metrics, **d_metrics}
 
     def _generator_step(self, batch: Batch, targets, draws: TTSStepDraws,
                         sections: _Sections):

@@ -16,6 +16,12 @@
   forward hook's `record_function`) would take those kernels from it.
   While no profiler records, it checks one flag and opens nothing. There
   is no setting: spans exist exactly when a profiler records.
+* `cut_at_spans(cut)`: while the block runs on this thread, every span's
+  enter and exit calls `cut.boundary` (with ("open", name, ids) and
+  ("close",)) and opens no range: train/graphs.py captures the train step
+  as CUDA graphs ended and begun there, and replays them between the same
+  spans, so that the work of a replay is launched inside the span it had
+  when the step ran eagerly.
 * `trace(logdir)`: a context manager that records the block with
   torch.profiler (CPU activity, and CUDA activity when a card is present)
   and writes it into `logdir` as a Chrome trace, `trace.json`, which
@@ -50,16 +56,55 @@ from torch.profiler import ProfilerActivity, profile
 
 SPAN_PREFIX = "vcvits."
 _NO_SPAN = contextlib.nullcontext()
+# (thread id, cut) of the capture that span boundaries cut, or None
+_CUT: Optional[tuple] = None
 
 
 def span(name: str, **ids):
     """The profiler range "vcvits.<name>" while a profiler records (`ids`
-    its keyword values), else a context that does nothing."""
+    its keyword values), else a context that does nothing; a boundary of
+    the capture under `cut_at_spans` on its thread."""
+    if _CUT is not None and _CUT[0] == threading.get_ident():
+        return _Boundary(_CUT[1], name, ids)
     # the module's flag is rebound when a profiler starts and stops: read
     # it through the module each call
     if not autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return _RecordFunctionFast(SPAN_PREFIX + name, (), ids)
+
+
+class _Boundary:
+    """A span under `cut_at_spans`: its enter and exit are the cut's
+    boundaries."""
+
+    def __init__(self, cut, name: str, ids: dict):
+        self.cut, self.name, self.ids = cut, name, ids
+
+    def __enter__(self) -> None:
+        self.cut.boundary(("open", self.name, self.ids))
+
+    def __exit__(self, *exc) -> bool:
+        self.cut.boundary(("close",))
+        return False
+
+
+def current_cut():
+    """The cut of `cut_at_spans` running on this thread, or None."""
+    return _CUT[1] if _CUT is not None and _CUT[0] == threading.get_ident() else None
+
+
+@contextlib.contextmanager
+def cut_at_spans(cut) -> Iterator[None]:
+    """Make every span entered or left on this thread inside the block a
+    boundary of `cut` (an object with `boundary(op)`). One at a time."""
+    global _CUT
+    if _CUT is not None:
+        raise RuntimeError("spans are already cut by another capture")
+    _CUT = (threading.get_ident(), cut)
+    try:
+        yield
+    finally:
+        _CUT = None
 
 
 def _activities() -> List[ProfilerActivity]:
